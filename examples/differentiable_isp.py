@@ -11,7 +11,7 @@ neutral and wrong exposure; Adam descent on a gray-world + mean-exposure loss
 on the developed sRGB recovers both. The same pattern extends to denoise
 strengths, tone parameters, or any other pipeline knob.
 
-Run (CPU or TPU): python -m examples.differentiable_isp
+Run (CPU or GPU): python -m examples.differentiable_isp
 """
 from __future__ import annotations
 
@@ -23,9 +23,8 @@ from pysp_tpu.const import QualityDemosaic
 from pysp_tpu.core.frame import RawFrame
 from pysp_tpu.pipeline.develop import DevelopConfig, develop
 
-# Fast tier, no Pallas: the XLA path is differentiable end to end (Pallas
-# kernels carry no VJP; they are perf twins of this same math).
-CFG = DevelopConfig(quality=QualityDemosaic.Fast, use_pallas=False)
+# Fast tier: every tier is plain jax.numpy/lax, differentiable end to end.
+CFG = DevelopConfig(quality=QualityDemosaic.Fast)
 
 
 def make_scene(h: int = 256, w: int = 320, seed: int = 0):

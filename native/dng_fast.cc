@@ -2,7 +2,7 @@
 //
 // Plays the role libraw (C++) plays in the reference (image.py:224-292): getting
 // sensor data out of container files and into normalized float planes fast enough to
-// feed a TPU. Exposed as a C ABI consumed via ctypes (pysp_tpu/io/native.py).
+// feed the accelerator. Exposed as a C ABI consumed via ctypes (pysp_tpu/io/native.py).
 //
 // Components:
 //   - byteswap/widen of uncompressed 16-bit strips (multithreaded)
@@ -1301,7 +1301,7 @@ int srw_decode(const uint8_t* data, int64_t len, const uint32_t* row_offsets,
 
 // --- fast PNG writer (stored-deflate blocks) --------------------------------
 // The streamed develop's true host bottleneck is PIL's zlib PNG encode
-// (3-12 s at 24 MP — BASELINE.md round-4 e2e ledger). A PNG whose IDAT is a
+// (seconds at 24 MP on the host). A PNG whose IDAT is a
 // zlib stream of STORED deflate blocks needs no compression at all: just the
 // filtered scanlines (filter byte 0), block headers, adler32 and per-chunk
 // CRC32 — a single memcpy-speed pass (~20-40x faster, ~12% larger files).

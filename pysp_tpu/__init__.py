@@ -1,6 +1,6 @@
-"""pysp_tpu — a TPU-native raw photo development framework.
+"""pysp_tpu — an accelerator-native raw photo development framework in JAX.
 
-Full capability surface of bullbin/pySP (see SURVEY.md), rebuilt TPU-first:
+Full capability surface of bullbin/pySP (see SURVEY.md), rebuilt for the accelerator:
 host-side decode/metadata/WB-solve feeding immutable pytrees, with every per-pixel
 stage compiled into fused XLA programs (vmappable over bursts, shardable over a
 ('batch', 'spatial') device mesh).

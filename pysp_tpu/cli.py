@@ -653,6 +653,9 @@ def _harvest(args) -> int:
 
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
+    from .utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     if args.command == "develop":
         return _develop(args)
     if args.command == "info":

@@ -26,10 +26,9 @@ Array = jnp.ndarray
 def mat3_apply(img: Array, mat: Array) -> Array:
     """Apply a 3x3 matrix to the last axis of an image, unrolled to elementwise ops.
 
-    Not a matmul on purpose: a K=3 einsum lowers to an MXU op with the channel dim
-    padded onto 128-wide tiles (the same pathology that made single-channel convs
-    blow up); nine scalar multiply-adds are exact f32 VPU work that fuses with the
-    surrounding pipeline.
+    Not a matmul on purpose: nine scalar multiply-adds are exact f32 work that
+    fuses with the surrounding elementwise pipeline, where a K=3 dot would be
+    a separate (and, at default precision, possibly reduced-precision) kernel.
     """
     r, g, b = img[..., 0], img[..., 1], img[..., 2]
     out0 = mat[0, 0] * r + mat[0, 1] * g + mat[0, 2] * b
@@ -54,6 +53,11 @@ _BRADFORD_NP = np.array(
 _BRADFORD_INV_NP = np.linalg.inv(_BRADFORD_NP)
 
 
+def _mm(a: Array, b: Array) -> Array:
+    """f32 matrix product at full precision (default precision may use TF32)."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
+
+
 def clip_rgb(rgb: Array) -> Array:
     """Clip an RGB image to [0,1] (transform.py:6-19)."""
     return jnp.clip(rgb, 0.0, 1.0)
@@ -63,10 +67,10 @@ def bradford_adapt(current_xyz: Array, target_xyz: Array) -> Array:
     """Bradford adaptation matrix, on-device (helpers_cam_mat.py:7-20)."""
     bradford = jnp.asarray(_BRADFORD_NP, jnp.float32)
     bradford_inv = jnp.asarray(_BRADFORD_INV_NP, jnp.float32)
-    lms_curr = bradford @ current_xyz
-    lms_targ = bradford @ target_xyz
+    lms_curr = _mm(bradford, current_xyz)
+    lms_targ = _mm(bradford, target_xyz)
     scale = lms_targ / lms_curr
-    return bradford_inv @ (scale[:, None] * bradford)
+    return _mm(bradford_inv, scale[:, None] * bradford)
 
 
 def _dest_to_xyz_adapted(dest_base: Array, dest_white: Array, cam_white: Array) -> Array:
@@ -75,7 +79,7 @@ def _dest_to_xyz_adapted(dest_base: Array, dest_white: Array, cam_white: Array) 
     Mirrors ArbitraryRgbColorspace.mat_to_xyz(destination_whitepoint=cam_white)
     (rgb_space.py:37-50): ``adapt @ base``.
     """
-    return bradford_adapt(dest_white, cam_white) @ dest_base
+    return _mm(bradford_adapt(dest_white, cam_white), dest_base)
 
 
 def cam_to_rgb_norm_matrix(
@@ -84,7 +88,7 @@ def cam_to_rgb_norm_matrix(
     """The 3x3 camera->destination matrix of cam_to_rgb_norm (transform.py:21-53):
     ``inv(row_normalize(cam_mat @ (RGB->XYZ adapted to camera white)))``."""
     mat_rgb_to_xyz_d_cam = _dest_to_xyz_adapted(dest_base, dest_white, cam_white)
-    color_mat = cam_mat @ mat_rgb_to_xyz_d_cam
+    color_mat = _mm(cam_mat, mat_rgb_to_xyz_d_cam)
     color_sum = jnp.sum(color_mat, axis=1, keepdims=True)
     color_mat = color_mat / color_sum
     return jnp.linalg.inv(color_mat)
@@ -210,13 +214,11 @@ _CV2_RGB_TO_XYZ = np.array(
 _CV2_LAB_WHITE = np.array([0.950456, 1.0, 1.088754], dtype=np.float32)
 
 
-def rgb_to_lab_channels(r: Array, g: Array, b: Array, cbrt_fn=jnp.cbrt):
+def rgb_to_lab_channels(r: Array, g: Array, b: Array):
     """Channelwise RGB [0,1] -> CIELAB (cv2 float semantics; see rgb_to_lab).
 
-    Identical math/op-order to rgb_to_lab on separate 2D arrays — usable inside
-    Pallas kernels (no channel stacking). ``cbrt_fn`` lets Pallas callers swap
-    in a Mosaic-friendly form (no cbrt primitive there; exp(log/3) measured
-    faster than multiply-only Halley iterations, benchmarks/cbrt_cost_probe.py)."""
+    Identical math/op-order to rgb_to_lab on separate 2D arrays (no channel
+    stacking)."""
 
     def decode(x):
         x = jnp.clip(x, 0.0, 1.0)
@@ -231,7 +233,7 @@ def rgb_to_lab_channels(r: Array, g: Array, b: Array, cbrt_fn=jnp.cbrt):
     def f(t):
         return jnp.where(
             t > 0.008856,
-            cbrt_fn(jnp.maximum(t, 1e-12)),
+            jnp.cbrt(jnp.maximum(t, 1e-12)),
             7.787 * t + 16.0 / 116.0,
         )
 

@@ -1,9 +1,8 @@
-"""Bayer plane (de)swizzling and pattern canonicalization — TPU-native.
+"""Bayer plane (de)swizzling and pattern canonicalization.
 
-The reference deswizzles with NumPy strided views (`/root/reference/bayer_chan_mixer.py:4-43`).
-Strided access is lane-hostile on TPU, so here the canonical trick is a reshape to
-``(H/2, 2, W/2, 2)`` followed by a transpose — XLA lowers this to a cheap relayout and
-fuses it into neighbouring ops.
+The reference deswizzles with NumPy strided views (`/root/reference/bayer_chan_mixer.py:4-43`);
+here the same deswizzle is a pair of single-axis strided slices, and the re-interleave a
+pair of minor-axis stack+reshapes, which XLA fuses into neighbouring ops.
 
 Plane order matches the reference: (R, G1, B, G2) where G1 is the top-right green and
 G2 the bottom-left green of an RGGB quad.
@@ -24,10 +23,8 @@ def bayer_to_rgbg(bayer: Array) -> Tuple[Array, Array, Array, Array]:
 
     Reference behavior: bayer_chan_mixer.py:4-21.
 
-    Done as two single-axis strided slices (rows, then columns). Measured on TPU
-    v5e at 24 MP: single-axis strides cost ~0.4 ms each, while the "idiomatic"
-    reshape-to-quads transpose costs ~14 ms and a double-strided slice ~125 ms —
-    the lane shuffle must be split per axis for Mosaic to lower it well.
+    Done as two single-axis strided slices (rows, then columns), one shuffle
+    per axis, in place of a reshape-to-quads transpose.
     """
     evens = bayer[..., 0::2, :]
     odds = bayer[..., 1::2, :]
@@ -41,8 +38,8 @@ def bayer_to_rgbg(bayer: Array) -> Tuple[Array, Array, Array, Array]:
 def rgbg_to_bayer(r: Array, g1: Array, b: Array, g2: Array) -> Array:
     """Re-interleave quarter-res planes into an RGGB mosaic (bayer_chan_mixer.py:23-43).
 
-    Columns interleave via a minor-axis stack+reshape, rows likewise — both are
-    fast single-axis shuffles on TPU (see bayer_to_rgbg note).
+    Columns interleave via a minor-axis stack+reshape, rows likewise — one
+    single-axis shuffle each (see bayer_to_rgbg note).
     """
     h2, w2 = r.shape[-2], r.shape[-1]
     even_rows = jnp.stack([r, g1], axis=-1).reshape(*r.shape[:-2], h2, w2 * 2)

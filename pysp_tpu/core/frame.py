@@ -1,24 +1,38 @@
 """Core pytree containers: RawFrame (Bayer-domain) and DevelopedImage (RGB-domain).
 
 These replace the reference's mutable classes (`/root/reference/base_types/image_base.py`)
-with immutable flax.struct pytrees so the full develop pipeline is one jittable,
+with immutable dataclass pytrees so the full develop pipeline is one jittable,
 vmappable function. Device-relevant state (pixels, matrices, scalars) are leaves;
 behavioral switches (HDR flag, source pattern) are static fields so the compiled
 program specializes on them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..const import BayerPattern
 
 Array = jnp.ndarray
 
 
-@struct.dataclass
+def _static(default):
+    """A meta field: part of the pytree's structure (and so of jit's cache
+    key), never a leaf."""
+    return dataclasses.field(default=default, metadata=dict(static=True))
+
+
+def _pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree, with a functional ``replace``."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(cls)
+
+
+@_pytree_dataclass
 class RawFrame:
     """A normalized Bayer frame plus the color metadata needed to develop it.
 
@@ -35,10 +49,8 @@ class RawFrame:
     wb_neutral: Array                 # (3,) camera neutral; reciprocal = WB gains
     ev: Array                         # () exposure value
     lim_sat: Array                    # () saturation ceiling (>1 for HDR stacks)
-    is_hdr: bool = struct.field(pytree_node=False, default=False)
-    source_pattern: BayerPattern = struct.field(
-        pytree_node=False, default=BayerPattern.Rggb
-    )
+    is_hdr: bool = _static(False)
+    source_pattern: BayerPattern = _static(BayerPattern.Rggb)
 
     @property
     def height(self) -> int:
@@ -84,7 +96,7 @@ class RawFrame:
         )
 
 
-@struct.dataclass
+@_pytree_dataclass
 class DevelopedImage:
     """Post-demosaic RGB container (reference: RawDemosaicData, image_base.py:19-64).
 
@@ -97,8 +109,8 @@ class DevelopedImage:
     cam_mat: Array                    # (3, 3) XYZ -> camera matrix
     cam_white: Array                  # (3,) scene illuminant XYZ
     ev: Array                         # ()
-    wb_applied: bool = struct.field(pytree_node=False, default=True)
-    wb_normalized: bool = struct.field(pytree_node=False, default=False)
+    wb_applied: bool = _static(True)
+    wb_normalized: bool = _static(False)
 
     def wb_apply(self) -> "DevelopedImage":
         """Apply WB coefficients if not already applied (image_base.py:45-50)."""

@@ -99,11 +99,11 @@ def _bisect_quantile(
 ):
     """Per-plane upper-order-statistic quantile via count multisection.
 
-    jnp.quantile sorts (~160 ms for 24 MP on TPU v5e); thresholding only needs the
-    value, so count-and-narrow passes find it instead. Each pass splits the
+    jnp.quantile sorts the whole plane; thresholding only needs the value, so
+    count-and-narrow passes find it instead. Each pass splits the
     bracket at ``branches`` interior points and counts rank for all of them in ONE
-    fused read of ``delta`` (broadcast-compare + reduce — the VPU compares are
-    free next to the HBM read), narrowing the bracket by (branches+1)x: 4 passes
+    fused read of ``delta`` (broadcast-compare + reduce — the compares are
+    cheap next to the memory read), narrowing the bracket by (branches+1)x: 4 passes
     of 16-way resolve to ~1e-5 of the value range, where the old 30 binary passes
     (30 full reads) were 2^30 overkill. Differs from numpy's linearly-interpolated
     quantile by at most the gap between two adjacent order statistics — harmless
@@ -173,9 +173,8 @@ def diffusion_inpaint(chan: Array, mask: Array, iterations: int = 32) -> Array:
     x0 = chan * (1 - mask_f) + seed * mask_f
 
     def body(_, x):
-        # 4 shift2d taps; XLA fuses the pads into the consumer (an explicit
-        # single-pad rewrite measured SLOWER — 52.8 -> 67 ms on config3 — the
-        # materialized padded buffer defeated the fusion).
+        # 4 shift2d taps; XLA fuses the pads into the consumer, where an
+        # explicit single-pad rewrite would materialize a padded buffer.
         acc = (
             shift2d(x, -1, 0, pad_replicate)
             + shift2d(x, 1, 0, pad_replicate)
@@ -198,8 +197,8 @@ def masked_fill_inpaint(
     one pixel (filling clusters up to radius ``fill_iterations``); the smoothing
     sweeps then relax multi-pixel clusters toward the harmonic (diffusion) fill.
     Anything still unreached (pathologically huge masks) falls back to the plane
-    mean. 4+2 passes replace the previous 32 — measured 52.8 -> ~21 ms for
-    BASELINE config 3 at 24 MP with identical isolated-pixel results.
+    mean. 4+2 passes replace the 32 blanket sweeps, with identical
+    isolated-pixel results.
     """
     valid0 = jnp.logical_not(mask)
     v0 = valid0.astype(chan.dtype)
@@ -245,13 +244,12 @@ def compact_mask_indices(mask_flat: Array, max_sites: int, block: int = 512) -> 
     """Ascending flat indices of set bits, padded with ``mask_flat.size``.
 
     Drop-in for ``jnp.nonzero(mask_flat, size=max_sites, fill_value=n)[0]``,
-    which lowers to a 24M-update bincount scatter-add on TPU (measured 165 ms
-    at 24 MP — scatter serialization; benchmarks/compact_probe.py). Here no
-    scatter larger than ``max_sites`` exists: per-block counts (one reduce) ->
-    tiny block cumsum -> per-slot owning block via searchsorted -> gather the
-    K owning blocks -> within-block rank via an MXU prefix sum (f32 triangular
-    matmul, exact for counts < 2^24). Measured 5.6 ms at 24 MP / K=32768;
-    bit-identical to nonzero for any mask.
+    which lowers to a full-frame bincount scatter-add (one update per pixel).
+    Here no scatter larger than ``max_sites`` exists: per-block counts (one
+    reduce) -> tiny block cumsum -> per-slot owning block via searchsorted ->
+    gather the K owning blocks -> within-block rank via a matmul prefix sum
+    (f32 triangular matmul at HIGHEST precision, exact for counts < 2^24).
+    Bit-identical to nonzero for any mask.
     """
     from jax import lax
 
@@ -287,7 +285,7 @@ def masked_fill_inpaint_sparse(
     """``masked_fill_inpaint`` on the compacted site list instead of full planes.
 
     Hot-pixel masks flag ~1e-4 of photosites; the dense fill still sweeps every
-    plane 6x (~10.5 ms at 24 MP on v5e). Here the masked coordinates are
+    plane 6x. Here the masked coordinates are
     compacted once (``jnp.nonzero`` with a static ``max_sites`` bound), the
     fill/smooth recurrences run on K-vectors (neighbor values gathered from the
     plane for unmasked neighbors, looked up via one ``searchsorted`` for masked
@@ -356,27 +354,20 @@ def repair_bad_pixels(frame: RawFrame, masks: Array, iterations: int = 4) -> Raw
     (raw_bad_pixel_corr.py:135-150, with mask-aware normalized-convolution fill
     instead of NS inpainting). ``iterations`` bounds the fillable cluster radius.
 
-    Dispatch (all three paths bit-identical): on TPU the banded Pallas kernel
-    runs every sweep in VMEM (one HBM pass, any mask); elsewhere the compacted
-    sparse fill when the flagged-site count fits its static bound, the dense
-    full-plane fill otherwise."""
+    Dispatch (both paths bit-identical): the compacted sparse fill when the
+    flagged-site count fits its static bound, the dense full-plane fill
+    otherwise."""
     masks = jnp.asarray(masks)
     if masks.shape[0] != 4:
         return frame
     planes = bayer_to_planes(frame.bayer)
-    healed = None
-    if jax.default_backend() == "tpu" and planes.ndim == 3:
-        from ..ops.pallas_kernels import masked_fill_pallas
-
-        healed = masked_fill_pallas(planes, masks, fill_iterations=iterations)
-    if healed is None:
-        max_sites = 8192  # sparse beats dense below this (compact_probe r2)
-        healed = jax.lax.cond(
-            jnp.sum(masks) <= max_sites,
-            lambda pl: masked_fill_inpaint_sparse(
-                pl, masks, fill_iterations=iterations, max_sites=max_sites
-            ),
-            lambda pl: masked_fill_inpaint(pl, masks, fill_iterations=iterations),
-            planes,
-        )
+    max_sites = 8192  # static bound on the sparse path's site list
+    healed = jax.lax.cond(
+        jnp.sum(masks) <= max_sites,
+        lambda pl: masked_fill_inpaint_sparse(
+            pl, masks, fill_iterations=iterations, max_sites=max_sites
+        ),
+        lambda pl: masked_fill_inpaint(pl, masks, fill_iterations=iterations),
+        planes,
+    )
     return frame.replace(bayer=planes_to_bayer(healed))

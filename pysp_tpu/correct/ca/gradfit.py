@@ -15,7 +15,7 @@ Scope: all three radial models — Poly3 (``Rd = k1·Ru³ + (1−k1)·Ru``), Pol
 loss aligns a ``moving`` channel against a ``reference`` channel on an
 interior window (borders are excluded: clipped samples there are
 non-differentiable plateaus). All ops are jittable; the fit runs equally on
-CPU or TPU. Use ``refine_ca_models_gradient`` to polish a template-match fit
+CPU or GPU. Use ``refine_ca_models_gradient`` to polish a template-match fit
 of any model kind in place.
 """
 from __future__ import annotations

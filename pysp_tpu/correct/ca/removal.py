@@ -73,8 +73,7 @@ def _remap_by_offsets(
     (ca_removal.py:100-128): coords[..., 0] is dy, [..., 1] is dx.
 
     With ``bound_px`` (a static displacement bound in pixels) the gather-free
-    bounded remap runs — bit-identical, and ~100x faster on TPU where gathers
-    cost ~10-25 ns/element (BASELINE.md)."""
+    bounded remap runs — bit-identical to the gather remap."""
     h, w = channel.shape[-2], channel.shape[-1]
     map_x, map_y = _maps_from_offsets(coords, h, w)
     if bound_px is not None:
@@ -112,197 +111,6 @@ def _model_bound_px(model, h: int, w: int, cap: int = 12) -> Optional[int]:
     return bound if bound <= cap else None
 
 
-def _model_row_zones(
-    models, h: int, w: int, kind: str, n_zones: int = 4, margin: int = 1
-):
-    """Per-row-zone displacement bounds of the models' remaps (host-side).
-
-    dy = y * (s(r) - 1) concentrates at the top/bottom rows AND is one-sided
-    per map direction (the Newton inverse displaces opposite to the forward
-    map), so per-launch per-zone dy bounds are roughly half the global span —
-    the zoned banded remap's select chains shrink accordingly. ``kind``
-    selects the map: "inv" for the G-alignment warps
-    (get_undistorted_coordinates), "fwd" for the back-warps. Bounds are the
-    union over the given models only. Returns zones for
-    remap_bounded_pallas_zoned, or None when a model misbehaves."""
-    import jax
-
-    from ...ops.pallas_kernels import row_zone_edges
-
-    edges = row_zone_edges(h, n_zones)
-    if edges is None:
-        return None
-    try:
-        with jax.ensure_compile_time_eval():
-            rs = jnp.asarray(np.linspace(1e-4, 1.0, 4096), jnp.float32)
-            scales = []
-            for m in models:
-                if kind == "fwd":
-                    f = np.asarray(m.get_distorted(rs), np.float64)
-                else:
-                    f = np.asarray(m.estimate_undistorted(rs), np.float64)
-                scales.append(f / np.asarray(rs, np.float64) - 1.0)
-    except Exception:
-        return None
-    if not all(np.isfinite(s).all() for s in scales):
-        return None
-    rs64 = np.linspace(1e-4, 1.0, 4096)
-    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-    r_corner = float(np.hypot(cy, cx))
-    xs = np.linspace(-cx, cx, 129)
-    zones = []
-    for r0, r1 in zip(edges, edges[1:]):
-        ys = np.linspace(r0, r1 - 1, max(17, (r1 - r0) // 8)) - cy
-        yg, xg = np.meshgrid(ys, xs, indexing="ij")
-        r = np.clip(np.hypot(yg, xg) / r_corner, 1e-4, 1.0)
-        dy_lo = dy_hi = dx_lo = dx_hi = 0.0
-        for sm1 in scales:
-            s = np.interp(r, rs64, sm1)
-            dy, dx = yg * s, xg * s
-            dy_lo, dy_hi = min(dy_lo, dy.min()), max(dy_hi, dy.max())
-            dx_lo, dx_hi = min(dx_lo, dx.min()), max(dx_hi, dx.max())
-        zones.append((
-            r0, r1,
-            (int(np.floor(dy_lo)) - margin, int(np.floor(dy_hi)) + margin),
-            (int(np.floor(dx_lo)) - margin, int(np.floor(dx_hi)) + margin),
-        ))
-    return zones
-
-
-def _model_rect_bounds(
-    scales, rs64, h: int, w: int, row_range, col_range, margin: int = 1
-):
-    """Displacement bounds of radial-model maps over an output rectangle
-    (host-side; ``scales`` are the models' dense ``f(r)/r - 1`` curves)."""
-    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-    r_corner = float(np.hypot(cy, cx))
-    r0, r1 = row_range
-    c0, c1 = col_range
-    ys = np.linspace(r0, r1 - 1, max(17, (r1 - r0) // 8)) - cy
-    xs = np.linspace(c0, c1 - 1, max(17, (c1 - c0) // 8)) - cx
-    yg, xg = np.meshgrid(ys, xs, indexing="ij")
-    r = np.clip(np.hypot(yg, xg) / r_corner, 1e-4, 1.0)
-    dy_lo = dy_hi = dx_lo = dx_hi = 0.0
-    for sm1 in scales:
-        s = np.interp(r, rs64, sm1)
-        dy, dx = yg * s, xg * s
-        dy_lo, dy_hi = min(dy_lo, dy.min()), max(dy_hi, dy.max())
-        dx_lo, dx_hi = min(dx_lo, dx.min()), max(dx_hi, dx.max())
-    return (
-        (int(np.floor(dy_lo)) - margin, int(np.floor(dy_hi)) + margin),
-        (int(np.floor(dx_lo)) - margin, int(np.floor(dx_hi)) + margin),
-    )
-
-
-def _model_scales(models, kind: str):
-    """Dense radial displacement-scale curves f(r)/r - 1 (host) or None."""
-    import jax
-
-    try:
-        with jax.ensure_compile_time_eval():
-            rs = jnp.asarray(np.linspace(1e-4, 1.0, 4096), jnp.float32)
-            scales = []
-            for m in models:
-                if kind == "fwd":
-                    f = np.asarray(m.get_distorted(rs), np.float64)
-                else:
-                    f = np.asarray(m.estimate_undistorted(rs), np.float64)
-                scales.append(f / np.linspace(1e-4, 1.0, 4096) - 1.0)
-    except Exception:
-        return None
-    if not all(np.isfinite(s).all() for s in scales):
-        return None
-    return scales
-
-
-def _model_grid_zones(
-    models, h: int, w: int, direction: str, n_rows: int = 4, n_cols: int = 4
-):
-    """Column x row rectangle zones of the models' remaps for
-    ``remap_bounded_pallas_grid`` — the medium-format path: a full-width CA
-    launch at 100 MP widths no longer fits VMEM (remap_fits_full_width), but
-    column rects shrink both the launch width and each rectangle's local
-    spans. Exact bilinear per rect (no sep gating at the halved strip-halo
-    budget — CA magnitudes rarely pass it anyway). Returns col_zones or None.
-    """
-    from ...ops.pallas_kernels import col_zone_edges, row_zone_edges
-
-    r_edges = row_zone_edges(h, n_rows)
-    c_edges = col_zone_edges(w, n_cols)
-    if r_edges is None or c_edges is None:
-        return None
-    scales = _model_scales(models, direction)
-    if scales is None:
-        return None
-    rs64 = np.linspace(1e-4, 1.0, 4096)
-    col_zones = []
-    for c0, c1 in zip(c_edges, c_edges[1:]):
-        zones = [
-            (r0, r1, *_model_rect_bounds(scales, rs64, h, w, (r0, r1), (c0, c1)))
-            for r0, r1 in zip(r_edges, r_edges[1:])
-        ]
-        col_zones.append((c0, c1, zones, None))
-    return col_zones
-
-
-def _model_sep_pos_error(
-    models,
-    h: int,
-    w: int,
-    dx_bounds,
-    reach: int = 1,
-    direction: str = "both",
-    row_range=None,
-):
-    """Position-error bound (px) of the separable two-pass remap for these CA
-    models: max |d map_y / dx| over the given map direction(s) x the horizontal
-    tap distance (see warp/rectilinear.warp_sep_pos_error — same idea, evaluated
-    from the models' radial scale curves on a host grid). ``direction`` picks
-    which maps a launch actually uses ("inv" = G-alignment warps, "fwd" =
-    back-warps, "both" = union); ``row_range`` restricts to output rows
-    [r0, r1) — |d map_y/dx| ~ |y - cy| for radial models, so central zones
-    bound far tighter than the whole frame (per-zone kinds). Returns None when
-    a model misbehaves (callers then keep the exact kinds)."""
-    import jax
-
-    try:
-        with jax.ensure_compile_time_eval():
-            rs = jnp.asarray(np.linspace(1e-4, 1.0, 4096), jnp.float32)
-            scales = []
-            for m in models:
-                fs = []
-                if direction in ("both", "fwd"):
-                    fs.append(m.get_distorted(rs))
-                if direction in ("both", "inv"):
-                    fs.append(m.estimate_undistorted(rs))
-                for f in fs:
-                    scales.append(np.asarray(f, np.float64) / np.linspace(1e-4, 1.0, 4096) - 1.0)
-    except Exception:
-        return None
-    if not all(np.isfinite(s).all() for s in scales):
-        return None
-    rs64 = np.linspace(1e-4, 1.0, 4096)
-    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-    r_corner = float(np.hypot(cy, cx))
-    r0, r1 = (0, h) if row_range is None else row_range
-    ys = np.linspace(r0, r1 - 1, 129) - cy
-    xs = np.linspace(-cx, cx, 257)
-    yg, xg = np.meshgrid(ys, xs, indexing="ij")
-    r = np.clip(np.hypot(yg, xg) / r_corner, 1e-4, 1.0)
-    lx = 0.0
-    for sm1 in scales:
-        # ANALYTIC d(dy)/dx for the radial map dy = y*m(r), r = |p|/R:
-        # d(dy)/dx = y * m'(r) * x / (R^2 * r), with m' from the dense radial
-        # curve. Replaces the round-3 finite differences over ~6 px mesh steps
-        # whose 1.25 peak-underestimate fudge kept the config-5 CA's central
-        # zones 6% over the sep budget (BASELINE.md round-4 ledger).
-        dm = np.gradient(sm1, rs64)
-        deriv = yg * np.interp(r, rs64, dm) * xg / (r_corner**2 * r)
-        lx = max(lx, float(np.abs(deriv).max()))
-    tap_dist = max(abs(int(dx_bounds[0])), abs(int(dx_bounds[1]))) + reach
-    return 1.05 * lx * tap_dist  # 1.05: mesh-sampling margin on a smooth field
-
-
 def remove_ca_from_raw(
     frame: RawFrame,
     lens_model_r: Optional[CaCorrectionModel],
@@ -322,11 +130,6 @@ def remove_ca_from_raw(
             )
 
     if frame.bayer.ndim == 3:
-        # burst: maps are frame-independent, so compute them once and batch
-        # every remap across the whole burst (round 4; see _remove_ca_burst)
-        out = _remove_ca_burst(frame, lens_model_r, lens_model_b)
-        if out is not None:
-            return out
         import jax
 
         return jax.lax.map(
@@ -338,12 +141,6 @@ def remove_ca_from_raw(
     wb = frame.wb_reciprocal()
 
     fh, fw = g_resampled.shape[-2], g_resampled.shape[-1]
-
-    batched = _remove_ca_batched(
-        frame, lens_model_r, lens_model_b, r, g1, b, g2, g_resampled, wb
-    )
-    if batched is not None:
-        return batched
 
     if lens_model_r is not None:
         bound_r = _model_bound_px(lens_model_r, fh, fw)
@@ -370,212 +167,3 @@ def remove_ca_from_raw(
         b = bayer_to_rgbg(b_at_g)[2] / wb[2]
 
     return frame.replace(bayer=rgbg_to_bayer(r, g1, b, g2))
-
-
-def _ca_launch_setup(models, fh, fw, direction):
-    """(bb, zones, kind, kinds, grid) for a banded CA remap launch using only
-    ``models``' ``direction`` maps — the SINGLE source of the bound / zone /
-    sep-kind gating shared by the per-frame (_remove_ca_batched) and burst
-    (_remove_ca_burst) paths. Direction-restricted gating bounds tighter than
-    a both-directions union (the forward and inverse maps displace opposite
-    ways), within the same 1/32-px sep accuracy budget. ``grid`` carries
-    column-rect zones when a full-width launch can't fit VMEM (medium-format
-    widths — round-5 large-frame ledger). None when any model misbehaves or
-    exceeds the bound cap."""
-    from ...ops.pallas_kernels import remap_fits_full_width
-    from ...ops.resample import SEP_POS_ERR_BUDGET
-
-    # cap 24 (not the full-width 12): medium-format radii push the same CA
-    # model past 12 px of displacement (k1 ~ 0.004 at a 7300 px corner radius
-    # is ~13 px), and the grid path splits the select cost by rect-LOCAL
-    # bounds, so the global bound may exceed what a full-width launch carries
-    bounds = [_model_bound_px(m, fh, fw, cap=24) for m in models]
-    if any(b is None for b in bounds):
-        return None
-    bound = max(bounds)
-    bb = (-bound, bound)
-    if bound > 12 and remap_fits_full_width("bilinear", fw, bb, bb):
-        # wide bound but narrow frame: the full-width select chains the 12 px
-        # cap protects against would actually run — keep the old refusal
-        return None
-    zones = _model_row_zones(models, fh, fw, direction)
-    glob = _model_sep_pos_error(models, fh, fw, bb, direction=direction)
-    kind = (
-        "bilinear_sep"
-        if glob is not None and glob <= SEP_POS_ERR_BUDGET
-        else "bilinear"
-    )
-    kinds = None
-    if zones is not None and kind == "bilinear":
-        # per-zone kinds: |d map_y/dx| ~ |y - cy| for radial models, so
-        # central zones ride the cheap separable kind even when the global
-        # bound fails
-        ks = []
-        for r0, r1, _, z_dxb in zones:
-            e = _model_sep_pos_error(
-                models, fh, fw, z_dxb, direction=direction, row_range=(r0, r1)
-            )
-            ks.append(
-                "bilinear_sep"
-                if e is not None and e <= SEP_POS_ERR_BUDGET
-                else "bilinear"
-            )
-        kinds = None if all(k == "bilinear" for k in ks) else ks
-    grids = []
-    if not remap_fits_full_width("bilinear", fw, bb, bb):
-        # candidate granularities, tried in order at launch time (a coarse
-        # grid's corner rectangles may still not fit; finer rects shrink both
-        # the launch width and the local spans)
-        grids = [
-            g
-            for n in (4, 8, 12)
-            if (g := _model_grid_zones(models, fh, fw, direction, n, n))
-            is not None
-        ]
-    return bb, zones, kind, kinds, grids
-
-
-def _ca_launch(stack, mx, my, setup):
-    """Shared grid -> zoned -> unzoned -> exact-bilinear banded-remap ladder."""
-    from ...ops.pallas_kernels import (
-        remap_bounded_pallas,
-        remap_bounded_pallas_grid,
-        remap_bounded_pallas_zoned,
-    )
-
-    bb, zones, kind, kinds, grids = setup
-    out = None
-    for grid in grids:
-        out = remap_bounded_pallas_grid(stack, mx, my, grid, "bilinear")
-        if out is not None:
-            break
-    if out is None and zones is not None:
-        out = remap_bounded_pallas_zoned(stack, mx, my, zones, kind, kinds=kinds)
-    if out is None:
-        out = remap_bounded_pallas(stack, mx, my, bb, bb, kind)
-    if out is None and kind != "bilinear":
-        out = remap_bounded_pallas(stack, mx, my, bb, bb, "bilinear")
-    return out
-
-
-def _remove_ca_burst(frames, lens_model_r, lens_model_b):
-    """Whole-burst CA removal: maps computed ONCE, remaps batched burst-wide.
-
-    The coordinate maps depend only on (model, shape) — never on pixel data —
-    yet the per-frame composition (lax.map over remove_ca_from_raw) recomputes
-    the Newton inverse and forward maps inside the scan body (~0.4 ms/frame;
-    XLA does not hoist the loop-invariant map tensors out of the while loop).
-    Here every (model, direction) map is built once and each remap runs as ONE
-    (N, bands)-grid launch over the whole burst in the kernel's shared-map
-    mode, amortizing launch overhead 16x. Per-model zones/sep-gating bound
-    tighter than the sequential path's two-model union (bounds only widen clip
-    ranges, so values match wherever the same kind runs; a zone whose
-    per-model position error passes the sep budget may ride the separable kind
-    where the union didn't — within the same 1/32 px accuracy budget).
-    Returns None off-TPU / single-model / unbounded — the caller then runs the
-    per-frame path under lax.map. BASELINE.md round-4 CA-burst ledger.
-    """
-    import jax
-
-    if lens_model_r is None or lens_model_b is None:
-        return None
-    if jax.default_backend() != "tpu":
-        return None
-
-    r, g1, b, g2 = bayer_to_rgbg(frames.bayer)  # (N, h2, w2)
-    g_res = jax.vmap(resample_g_to_full_resolution)(g1, g2)  # (N, fh, fw)
-    wb = frames.wb_reciprocal()  # (N, 3)
-    fh, fw = g_res.shape[-2], g_res.shape[-1]
-
-    setups = {}
-    for name, model in (("r", lens_model_r), ("b", lens_model_b)):
-        for direction in ("inv", "fwd"):
-            s = _ca_launch_setup([model], fh, fw, direction)
-            if s is None:
-                return None
-            setups[name, direction] = s
-
-    launch = _ca_launch
-
-    probe = g_res[0]  # shape carrier only — the maps are data-independent
-
-    def maps(model, direction):
-        coords = (
-            model.get_undistorted_coordinates(probe)
-            if direction == "inv"
-            else model.get_distorted_coordinates(probe)
-        )
-        return _maps_from_offsets(coords, fh, fw)
-
-    g_at_r = launch(g_res, *maps(lens_model_r, "inv"), setups["r", "inv"])
-    g_at_b = launch(g_res, *maps(lens_model_b, "inv"), setups["b", "inv"])
-    if g_at_r is None or g_at_b is None:
-        return None
-
-    r_res = jax.vmap(resample_r)(r * wb[:, 0, None, None], g_at_r)
-    b_res = jax.vmap(resample_b)(b * wb[:, 2, None, None], g_at_b)
-
-    r_at_g = launch(r_res, *maps(lens_model_r, "fwd"), setups["r", "fwd"])
-    b_at_g = launch(b_res, *maps(lens_model_b, "fwd"), setups["b", "fwd"])
-    if r_at_g is None or b_at_g is None:
-        return None
-
-    r_new = bayer_to_rgbg(r_at_g)[0] / wb[:, 0, None, None]
-    b_new = bayer_to_rgbg(b_at_g)[2] / wb[:, 2, None, None]
-    return frames.replace(bayer=rgbg_to_bayer(r_new, g1, b_new, g2))
-
-
-def _remove_ca_batched(
-    frame, lens_model_r, lens_model_b, r, g1, b, g2, g_resampled, wb
-):
-    """Both-channel CA removal with the two remap pairs batched into two
-    (2, H, W) banded-kernel launches (grids over channel x bands): the G
-    warps share one HBM copy of the upsampled green (shared-img mode), the
-    back-warps stack R/B. Values identical to the sequential path (the union
-    displacement bound only widens the clip range; selection still picks each
-    pixel's exact taps). Returns None off-TPU / single-model / unbounded —
-    the caller then runs the per-channel path."""
-    import jax
-
-    if lens_model_r is None or lens_model_b is None:
-        return None
-    if jax.default_backend() != "tpu" or g_resampled.ndim != 2:
-        return None
-    fh, fw = g_resampled.shape
-    both = [lens_model_r, lens_model_b]
-    # shared gating (_ca_launch_setup): union bounds/zones over both models,
-    # per-direction sep kinds — the same single source the burst path uses
-    setup_inv = _ca_launch_setup(both, fh, fw, "inv")
-    setup_fwd = _ca_launch_setup(both, fh, fw, "fwd")
-    if setup_inv is None or setup_fwd is None:
-        return None
-
-    def maps2(coords_a, coords_b):
-        xa, ya = _maps_from_offsets(coords_a, fh, fw)
-        xb, yb = _maps_from_offsets(coords_b, fh, fw)
-        return jnp.stack([xa, xb]), jnp.stack([ya, yb])
-
-    mx, my = maps2(
-        lens_model_r.get_undistorted_coordinates(g_resampled),
-        lens_model_b.get_undistorted_coordinates(g_resampled),
-    )
-    g_at = _ca_launch(g_resampled, mx, my, setup_inv)
-    if g_at is None:
-        return None
-
-    r_resampled = resample_r(r * wb[0], g_at[0])
-    b_resampled = resample_b(b * wb[2], g_at[1])
-
-    mx2, my2 = maps2(
-        lens_model_r.get_distorted_coordinates(r_resampled),
-        lens_model_b.get_distorted_coordinates(b_resampled),
-    )
-    back = _ca_launch(
-        jnp.stack([r_resampled, b_resampled]), mx2, my2, setup_fwd
-    )
-    if back is None:
-        return None
-
-    r_new = bayer_to_rgbg(back[0])[0] / wb[0]
-    b_new = bayer_to_rgbg(back[1])[2] / wb[2]
-    return frame.replace(bayer=rgbg_to_bayer(r_new, g1, b_new, g2))

@@ -1,12 +1,12 @@
-"""Bayer-domain noise reduction — the TPU-native stand-in for libraw FBDD.
+"""Bayer-domain noise reduction — the native stand-in for libraw FBDD.
 
 The reference's alternate loader exists "mainly for Bayer-domain denoising"
 (image.py:331-339: libraw postprocess with FBDD full NR); that path needs the
 optional rawpy dependency here. This module supplies a native pre-demosaic
 denoiser instead: an a-trous (undecimated) B3-spline wavelet soft-threshold on
 the four CFA phase planes — the classic shift-invariant shrinkage used by raw
-processors, and a perfect TPU fit (every step is separable shift-and-add the
-XLA fuser handles; no gathers, no sorts, vmappable).
+processors, and a good fit for a fused device program (every step is separable
+shift-and-add the XLA fuser handles; no gathers, no sorts, vmappable).
 
 Method per plane:
   smooth_{l+1} = B3 * smooth_l with taps dilated 2^l   (kernel [1,4,6,4,1]/16)
@@ -41,7 +41,7 @@ _LEVEL_SIGMA = (0.8907, 0.2007, 0.0855, 0.0412, 0.0202)
 
 def _b3_smooth(x: Array, dilation: int) -> Array:
     """Separable dilated B3-spline smoothing ([1,4,6,4,1]/16 per axis),
-    reflect borders, as shifts+adds (single-channel lax.conv is slow on TPU)."""
+    reflect borders, as shifts+adds that fuse with their neighbours."""
     w = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)
 
     def pass1(v, axis):

@@ -27,10 +27,10 @@ def flat_frame_correction(
     The per-plane math is pointwise in the mosaic layout — each photosite divides
     by its own flat value and scales by its CFA plane's flat mean — so the means
     come from dimension-split reductions and broadcast back through a 2x2 phase
-    select, keeping the whole op one fused elementwise pass over the mosaic. The
-    previous plane-stack formulation paid two full CFA (de)interleave relayouts
-    (~4 ms of pure data movement at 24 MP); the elementwise math is identical and
-    the per-plane reductions differ only by association order (ulps).
+    select, keeping the whole op one fused elementwise pass over the mosaic, where
+    a plane-stack formulation would pay two full CFA (de)interleave passes; the
+    elementwise math is identical and the per-plane reductions differ only by
+    association order (ulps).
 
     Spatial sharding: with ``axis_name``, the per-plane flat statistics reduce
     collectively across equal-size row shards (``core_rows`` excludes exchanged
@@ -47,8 +47,7 @@ def flat_frame_correction(
     def _per_phase(x, red, collective=None):
         # Per-CFA-phase reduction, phase-selected back to mosaic broadcast shape.
         # The dimension-split reshape is free (no data movement) and the reduce
-        # reads x once; stride-2 slicing here lowered to ~10 ns/px gathers
-        # (the BASELINE.md gather wall — measured 252 ms for this op at 24 MP).
+        # reads x once.
         xr = x if core_rows is None else x[..., core_rows[0] : core_rows[1], :]
         h2, w2 = xr.shape[-2] // 2, xr.shape[-1] // 2
         q = xr.reshape(*xr.shape[:-2], h2, 2, w2, 2)

@@ -6,7 +6,7 @@ Reference behavior: /root/reference/raw_hdr.py — EV-normalize each frame
 variant, :127-137), weighted-average, and fall back to the brightest frame where total
 weight is zero (:143-148).
 
-TPU-native shape: inputs are batched pytrees (leading frame axis N) so the whole fuse is
+Shape: inputs are batched pytrees (leading frame axis N) so the whole fuse is
 one fused reduction — no per-frame Python loop, vmappable and shardable over the batch.
 """
 from __future__ import annotations
@@ -41,10 +41,7 @@ def fuse_exposures_to_raw(
 
     # The per-photosite WB noise bias depends only on (frame, CFA phase) — 4
     # scalars per frame. The first formulation materialized it full-res via a
-    # rgbg_to_bayer interleave (a relayout pass at 5x24 MP); a dimension-split
-    # (N, H/2, 2, W/2, 2) rewrite OOM'd on TPU (trailing dim 2 tiles as T(2,128):
-    # 128x padding, 11.4 GB for one slice — see BASELINE.md round-3 HDR ledger).
-    # Broadcasting the tiny (N, 2, 2) bias table by row/column-parity selects
+    # rgbg_to_bayer interleave (a relayout pass at 5x24 MP). Broadcasting the tiny (N, 2, 2) bias table by row/column-parity selects
     # keeps everything in the native (N, H, W) layout and fuses into the single
     # reduction pass. The scalar math per element is unchanged (same multiply/
     # abs/pow on the same values), so the fuse stays bit-identical to the
@@ -68,9 +65,8 @@ def fuse_exposures_to_raw(
     weights = (0.5 - jnp.abs(frames.bayer - 0.5)) * bias
 
     # ONE variadic reduce pass over the (N, H, W) stack for all four outputs:
-    # jnp.sum twice + a dynamic-slice fallback + a count pass each re-read the
-    # 480 MB burst (fuse alone measured 3.6 ms vs the ~0.7 ms single-pass HBM
-    # floor at 5x24 MP). The brightest-frame fallback folds into the same pass
+    # jnp.sum twice + a dynamic-slice fallback + a count pass would each re-read
+    # the 480 MB burst (5x24 MP). The brightest-frame fallback folds into the same pass
     # as a one-hot select summed over N (exactly one nonzero term — adding f32
     # zeros is exact, so that value is bit-identical to the sliced frame). The
     # weighted sums may associate in a different order than jnp.sum's lowering

@@ -5,7 +5,7 @@ Additive over the reference: its develop clips highlights at saturation
 colorize/transform.py:29 clips camera RGB at 1.0), which renders any pixel with
 at least one clipped channel as flat white (or, unclipped, as a magenta/cyan
 cast). libraw itself offers highlight *reconstruction* modes the reference
-never exposes — this module is the TPU-native equivalent capability.
+never exposes — this module is the equivalent capability, on the device.
 
 Method (own design — documented in DIVERGENCES.md, not a parity item):
 

@@ -19,7 +19,6 @@ def demosaic(
     frame: RawFrame,
     quality: QualityDemosaic = QualityDemosaic.Best,
     postprocess_steps: int = 1,
-    use_pallas: bool = False,
 ) -> DevelopedImage:
     """Demosaic a canonical-RGGB frame at the requested quality tier.
 
@@ -27,9 +26,7 @@ def demosaic(
     source pattern happens in the develop pipeline, mirroring image.py:181.
     """
     if quality == QualityDemosaic.Best:
-        return demosaic_ahd(
-            frame, postprocess_stages=postprocess_steps, use_pallas=use_pallas
-        )
+        return demosaic_ahd(frame, postprocess_stages=postprocess_steps)
     if quality == QualityDemosaic.Fast:
         return demosaic_eag(frame)
     if quality == QualityDemosaic.Draft:

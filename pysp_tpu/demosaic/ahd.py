@@ -12,7 +12,6 @@ one XLA program and is vmappable over burst frames.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -38,14 +37,8 @@ _H = _H_OPTIMAL * _RATIO_OPTIMAL + _H_FAST * (1 - _RATIO_OPTIMAL)
 _H = (_H / _H.sum()).astype(np.float32)
 
 
-def _use_pallas(flag: bool) -> bool:
-    """Pallas kernels only on a real TPU backend; XLA fallbacks elsewhere."""
-    return flag and jax.default_backend() == "tpu"
-
-
 def _build_homogeneity_map(
-    r: Array, g: Array, b: Array, frame: RawFrame, is_vertical: bool,
-    use_pallas: bool = False,
+    r: Array, g: Array, b: Array, frame: RawFrame, is_vertical: bool
 ) -> Array:
     """LAB homogeneity for one direction (ahd.py:32-67).
 
@@ -53,7 +46,7 @@ def _build_homogeneity_map(
     already carry WB from the interpolation stage) — replicated for parity.
     """
     wb = frame.wb_reciprocal()
-    # Channelwise end-to-end (no (H, W, 3) stacks — those cost relayout passes):
+    # Channelwise end-to-end (no (H, W, 3) stacks mid-pipeline):
     # cam->lin-sRGB is the 3x3 from cam_to_lin_srgb_matrix, clip_highlights=False.
     mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
     rr, gg, bb = r * wb[0], g * wb[1], b * wb[2]
@@ -83,25 +76,15 @@ def postprocess_color_channels(r: Array, g: Array, b: Array):
     return r, g, b
 
 
-def postprocess_color(image: Array, use_pallas: bool = False) -> Array:
-    """One chroma-median stage (ahd.py:148-161): median5 on color differences.
-
-    With use_pallas on TPU, the whole stage (all four median-of-25 networks +
-    arithmetic) runs as one fused VMEM-banded kernel — bit-identical output."""
-    if _use_pallas(use_pallas):
-        from ..ops.pallas_kernels import postprocess_color_pallas
-
-        return postprocess_color_pallas(image)
-
+def postprocess_color(image: Array) -> Array:
+    """One chroma-median stage (ahd.py:148-161): median5 on color differences."""
     r, g, b = postprocess_color_channels(image[..., 0], image[..., 1], image[..., 2])
     return jnp.stack([r, g, b], axis=-1)
 
 
-def demosaic_ahd_channels(
-    frame: RawFrame, postprocess_stages: int = 1, use_pallas: bool = False
-):
-    """AHD demosaic returning separate (r, g, b) channels — the TPU-native hot path
-    (channel stacks cost relayout passes; develop stacks once at the very end)."""
+def _ahd_directional(frame: RawFrame):
+    """Horizontal and vertical (r, g, b) candidates and the per-pixel pick
+    (1.0 = horizontal) of AHD's direction decision."""
     r0, g1_0, b0, g2_0 = bayer_to_rgbg(frame.bayer)
     wb = frame.wb_reciprocal()
 
@@ -166,35 +149,41 @@ def demosaic_ahd_channels(
     b_v = resample_channel(b_c, gv_b, delta_gv_hf, BayerPatternPosition.BOTTOM_RIGHT)
 
     # Direction decision on box-blurred homogeneity (ahd.py:129-145).
-    # (A fully fused Pallas decision kernel exists — ops.pallas_kernels.
-    # ahd_decision_pallas — but measured only ~2ms faster than this XLA chain at
-    # 24MP while flipping ~9% of exact-tie picks through Mosaic's different
-    # transcendentals, so the XLA chain stays the default path.)
     # Unnormalized sums, not cv2.blur's x(1/9): the counts are integers, so the
     # sums compare exactly (ops.stencil.box_sum3) — decisions are deterministic
     # across compilations; the 1/9 was monotone and changed nothing else.
-    map_h = box_sum3(_build_homogeneity_map(r_h, g_h, b_h, frame, False, use_pallas))
-    map_v = box_sum3(_build_homogeneity_map(r_v, g_v, b_v, frame, True, use_pallas))
+    map_h = box_sum3(_build_homogeneity_map(r_h, g_h, b_h, frame, False))
+    map_v = box_sum3(_build_homogeneity_map(r_v, g_v, b_v, frame, True))
     pick = (map_h < map_v).astype(jnp.float32)
+    return (r_h, g_h, b_h), (r_v, g_v, b_v), pick
+
+
+def ahd_direction_pick(frame: RawFrame) -> Array:
+    """AHD's per-pixel H/V decision (1.0 = horizontal), as the develop takes it.
+
+    Exact ties between the two homogeneity counts may fall either way between
+    two compilations (DIVERGENCES.md), so comparing picks across devices shows
+    how much of a develop's difference those ties explain."""
+    return _ahd_directional(frame)[2]
+
+
+def demosaic_ahd_channels(frame: RawFrame, postprocess_stages: int = 1):
+    """AHD demosaic returning separate (r, g, b) channels — the develop hot path
+    (develop stacks the channels once, at the very end)."""
+    (r_h, g_h, b_h), (r_v, g_v, b_v), pick = _ahd_directional(frame)
     inv = 1.0 - pick
     out_r = r_h * pick + r_v * inv
     out_g = g_h * pick + g_v * inv
     out_b = b_h * pick + b_v * inv
 
-    if _use_pallas(use_pallas):
-        from ..ops.pallas_kernels import postprocess_color_pallas_channels as pp
-    else:
-        pp = postprocess_color_channels
     for _ in range(max(int(postprocess_stages), 0)):
-        out_r, out_g, out_b = pp(out_r, out_g, out_b)
+        out_r, out_g, out_b = postprocess_color_channels(out_r, out_g, out_b)
 
     return out_r, out_g, out_b
 
 
-def demosaic_ahd(
-    frame: RawFrame, postprocess_stages: int = 1, use_pallas: bool = False
-) -> DevelopedImage:
-    r, g, b = demosaic_ahd_channels(frame, postprocess_stages, use_pallas)
+def demosaic_ahd(frame: RawFrame, postprocess_stages: int = 1) -> DevelopedImage:
+    r, g, b = demosaic_ahd_channels(frame, postprocess_stages)
     return DevelopedImage(
         image=jnp.stack([r, g, b], axis=-1).astype(jnp.float32),
         wb_coeff=frame.wb_reciprocal(),

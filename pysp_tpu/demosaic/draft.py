@@ -49,8 +49,8 @@ def develop_channels_draft(
     four 2x-bilinear output phases are computed as 4-tap stencils at QUARTER
     resolution, the (pointwise) color tail runs there, and the full-res image is
     assembled once per channel — same taps, one association-order difference
-    (~1 ulp; measured 141 dB vs the separable path) and 17% faster at 24 MP on
-    v5e (3.51 -> 3.02 ms). Returns color-tailed (r, g, b) full-res channels.
+    (~1 ulp; measured 141 dB vs the separable path) and a quarter of the tail's
+    arithmetic. Returns color-tailed (r, g, b) full-res channels.
     """
     from ..colorimetry.transforms import cam_to_lin_srgb_matrix
     from ..ops.polyphase import quad_to_bayer

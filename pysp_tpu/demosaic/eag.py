@@ -196,10 +196,9 @@ def develop_channels_eag(
 
     The unfused path interleaves full-res G (one relayout), deinterleaves it
     again for the R/B guides, interleaves the upsampled R and B (two more
-    relayouts), and runs blur3 + the color tail at full resolution — the
-    EAG roofline probe (benchmarks/eag_probe.py) measured those relayout
-    passes, not the math, as the Fast tier's cost. Here every stage stays on
-    the four CFA phase planes (the megakernel's polyphase trick, pure XLA):
+    relayouts), and runs blur3 + the color tail at full resolution — each
+    relayout a full-frame pass of pure data movement. Here every stage stays
+    on the four CFA phase planes:
     G fill and blur3 are phase stencils, the photosite-phase R/B convolutions
     already produce phases, the (pointwise) color tail runs per phase, and the
     full-res image is assembled ONCE per channel. Same taps as the unfused
@@ -243,7 +242,7 @@ def develop_channels_eag(
 
 
 def demosaic_eag_channels(frame: RawFrame):
-    """Fast demosaic returning separate (r, g, b) channels (the TPU hot path)."""
+    """Fast demosaic returning separate (r, g, b) channels (the develop hot path)."""
     r, g1, b, g2 = bayer_to_rgbg(frame.bayer)
     wb = frame.wb_reciprocal()
 

@@ -2,8 +2,7 @@
 
 Reference behavior: /root/reference/debayer/ahd_homogeneity_cython.pyx (OpenMP prange
 over rows, per-pixel 3x3 window count). Here the same math is 9 shifted compares that
-XLA fuses into one VPU pass; a Pallas VMEM-tiled variant is the perf path (see
-pysp_tpu/demosaic/homogeneity_pallas.py).
+XLA fuses into one elementwise pass.
 
 Semantics preserved exactly, including the kernel's one-sided luminance test
 (``L_window - L_ref <= eps`` — not abs; .pyx:54-58).
@@ -20,8 +19,8 @@ Array = jnp.ndarray
 def homogeneity_map_channels(
     lum: Array, a: Array, b: Array, is_vertical: bool, domain_k: int = 3
 ) -> Array:
-    """Channelwise homogeneity count (keeps the LAB planes un-stacked — the stacked
-    (H, W, 3) layout costs extra relayout passes on TPU)."""
+    """Channelwise homogeneity count (keeps the LAB planes un-stacked, as 2D
+    planes from the demosaic through the count)."""
     assert domain_k % 2 == 1
     k_pad = domain_k // 2
 
@@ -52,7 +51,7 @@ def homogeneity_map_channels(
     # (deltas are 0 <= eps) and the two directional neighbors that DEFINE eps
     # (n1 - lum <= |lum - n1| <= eps_l holds exactly in f32 — a-b is the exact
     # negation of b-a — and the chroma squares are the eps terms themselves).
-    # Bit-identical to checking all 9, one third fewer VPU ops.
+    # Bit-identical to checking all 9, one third fewer compares.
     free = {(0, 0), (-1, 0), (1, 0)} if is_vertical else {(0, 0), (0, -1), (0, 1)}
     count = jnp.full_like(lum, 3.0)
     for dy in range(-k_pad, k_pad + 1):
@@ -68,13 +67,3 @@ def homogeneity_map_channels(
 
     return count
 
-
-def homogeneity_map(lab: Array, is_vertical: bool, domain_k: int = 3) -> Array:
-    """Count in-window neighbors within adaptive (eps_L, eps_C^2) bounds of each pixel.
-
-    ``lab`` is the UNPADDED (H, W, 3) CIELAB image — padding (BORDER_REFLECT, matching
-    ahd.py:65) happens internally.
-    """
-    return homogeneity_map_channels(
-        lab[..., 0], lab[..., 1], lab[..., 2], is_vertical, domain_k
-    )

@@ -34,34 +34,8 @@ def unsharp_mask_lab(lin_srgb: Array, radius: float, amount: float) -> Array:
 def gaussian_rt_deconvolution(
     image: Array, sigma: float, iterations: int = 20
 ) -> Array:
-    """Richardson-Lucy with a symmetric Gaussian PSF (gauss_rt_deconv.py:7-37).
-
-    On TPU the iteration runs as a banded Pallas kernel (one est read/write
-    per iteration, both separable blurs in VMEM) — the XLA composition
-    materializes ~6 full-frame arrays per iteration and measured 129-468 ms
-    for 20 iterations at 24 MP (BASELINE.md round-5 filter ledger). Values
-    match the XLA loop (same op order, same border semantics); single-channel
-    planes run one kernel chain, (H, W, C) images one per channel.
-    """
+    """Richardson-Lucy with a symmetric Gaussian PSF (gauss_rt_deconv.py:7-37)."""
     image = jnp.asarray(image)
-
-    if jax.default_backend() == "tpu" and image.dtype == jnp.float32:
-        from ..ops.pallas_kernels import rl_deconv_pallas
-
-        from .blur import get_1d_gaussian_filter
-
-        taps = get_1d_gaussian_filter(float(sigma))
-        if image.ndim == 2:
-            out = rl_deconv_pallas(image, taps, iterations)
-            if out is not None:
-                return out
-        elif image.ndim == 3:
-            outs = [
-                rl_deconv_pallas(image[..., c], taps, iterations)
-                for c in range(image.shape[-1])
-            ]
-            if all(o is not None for o in outs):
-                return jnp.stack(outs, axis=-1)
 
     def body(_, estimate):
         blurred = blur_gaussian(estimate, sigma)

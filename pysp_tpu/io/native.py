@@ -574,8 +574,8 @@ def has_png() -> bool:
 
 def png_encode(img: np.ndarray) -> bytes:
     """Encode (H, W, 3) or (H, W) pixels as a valid PNG — stored-deflate
-    blocks, no compression pass (~12x faster than zlib at ~12% larger files;
-    BASELINE.md round-4 PNG ledger). uint8 input writes an 8-bit PNG; uint16
+    blocks, no compression pass (much faster than zlib, at larger files).
+    uint8 input writes an 8-bit PNG; uint16
     a 16-bit PNG (a mode PIL cannot even write for RGB). The output reads
     back identically through any PNG decoder."""
     lib = _load()

@@ -1,27 +1,17 @@
-"""Polyphase (per-CFA-phase) formulations of the full-resolution stencils.
+"""Polyphase (per-CFA-phase) plane split and assembly.
 
-Groundwork for the whole-AHD Pallas megakernel (ROADMAP.md item 1): Mosaic cannot
-(de)interleave CFA phases inside VMEM, so a banded kernel that keeps all intermediates
-on-chip must express every full-resolution op on the four quarter-res phase planes.
+The Draft and Fast develops run their stencils on the four quarter-res phase
+planes and assemble the full-resolution mosaic once, at the end.
 
 Representation: a "quad" is a tuple of 4 planes indexed by (row_parity, col_parity):
 ``quad[py][px]`` with shape (H/2, W/2). Note this differs from the (R, G1, B, G2)
-order of core.bayer — converters below.
-
-Each op here is bit-verified against its interleaved twin (tests/test_polyphase.py):
-- ``conv3x3_poly``  == filter2d(merge(quad), k, border) split back to phases
-- ``median5_poly``  == median5(merge(quad)) split back to phases
-
-Math: full-res sample (2i+py+dy, 2j+px+dx) lives on phase ((py+dy)&1, (px+dx)&1) at
-plane offset (floor((py+dy)/2), floor((px+dx)/2)); border handling maps full-res
-padding rules to per-phase 1-row/col pads whose mode depends on which phase steps out.
+order of core.bayer.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import jax.numpy as jnp
-import numpy as np
 
 Array = jnp.ndarray
 Quad = Tuple[Tuple[Array, Array], Tuple[Array, Array]]
@@ -44,125 +34,3 @@ def quad_to_bayer(quad: Quad) -> Array:
     even = jnp.stack([p00, p01], axis=-1).reshape(*p00.shape[:-2], h2, w2 * 2)
     odd = jnp.stack([p10, p11], axis=-1).reshape(*p00.shape[:-2], h2, w2 * 2)
     return jnp.stack([even, odd], axis=-2).reshape(*p00.shape[:-2], h2 * 2, w2 * 2)
-
-
-def shift_fullres(quad: Quad, py: int, px: int, dy: int, dx: int, border: str) -> Array:
-    """The full-res field sampled at (2i+py+dy, 2j+px+dx) as a plane for phase (py, px).
-
-    Supports |dy|, |dx| <= 2 and borders 'reflect101' (cv2 filter default),
-    'replicate' (cv2 medianBlur) and 'symmetric' (cv2 BORDER_REFLECT: full row -1 -> 0,
-    -2 -> 1 — always cross-phase in plane space).
-    """
-    sy = py + dy
-    sx = px + dx
-    qy, qx = sy & 1, sx & 1
-    oy = sy >> 1  # floor division toward -inf for the small range used here
-    ox = sx >> 1
-    if sy < 0:
-        oy = -((-sy + 1) // 2)
-    if sx < 0:
-        ox = -((-sx + 1) // 2)
-
-    plane = quad[qy][qx]
-    h2, w2 = plane.shape[-2], plane.shape[-1]
-
-    # Row shift with border resolution. oy in {-1, 0, 1}; the pad row needed when
-    # oy == -1 (top) or +1 (bottom) corresponds to full row sy<0 or sy>=H.
-    def row_view(p: Array, oy: int) -> Array:
-        if oy == 0:
-            return p
-        if oy == -1:
-            # rows: plane rows -1..h2-2; row -1 is full row sy = 2*(-1)+qy = qy-2
-            if border == "reflect101":
-                # full -1 -> +1 ; full -2 -> +2
-                if qy == 1:  # full row -1 -> full +1 = plane row 0 (same phase)
-                    pad = p[..., 0:1, :]
-                else:        # full row -2 -> full +2 = plane row 1
-                    pad = p[..., 1:2, :]
-            elif border == "replicate":  # any full row < 0 -> full row 0 (phase 0)
-                pad = quad[0][qx][..., 0:1, :] if qy == 1 else p[..., 0:1, :]
-            else:  # symmetric: full -1 -> 0 ; full -2 -> 1 (always cross-phase)
-                pad = quad[1 - qy][qx][..., 0:1, :]
-            return jnp.concatenate([pad, p[..., :-1, :]], axis=-2)
-        # oy == +1: plane rows 1..h2; row h2 is full row 2*h2+qy (>= H)
-        if border == "reflect101":
-            # full H -> H-2 ; full H+1 -> H-3
-            if qy == 0:  # full 2*h2 -> 2*h2-2 = plane row h2-1
-                pad = p[..., -1:, :]
-            else:        # full 2*h2+1 -> 2*h2-3 = phase-1 plane row h2-2
-                pad = p[..., -2:-1, :]
-        elif border == "replicate":  # any full row >= H -> full row H-1 (phase 1)
-            pad = p[..., -1:, :] if qy == 1 else quad[1][qx][..., -1:, :]
-        else:  # symmetric: full H -> H-1 ; full H+1 -> H-2 (cross-phase)
-            pad = quad[1 - qy][qx][..., -1:, :]
-        return jnp.concatenate([p[..., 1:, :], pad], axis=-2)
-
-    plane = row_view(plane, oy)
-
-    def col_view(p: Array, ox: int) -> Array:
-        if ox == 0:
-            return p
-        if ox == -1:
-            if border == "reflect101":
-                pad = p[..., :, 0:1] if qx == 1 else p[..., :, 1:2]
-            elif border == "replicate":
-                if qx == 0:
-                    pad = p[..., :, 0:1]
-                else:
-                    # cross-phase col: full col < 0 -> col 0 (phase 0); borrow from
-                    # the row-shifted phase-(.,0) field (dx=0: no further col pads)
-                    pad = shift_fullres(quad, py, 0, dy, 0, border)[..., :, 0:1]
-            else:  # symmetric: full -1 -> 0 ; full -2 -> 1 (cross-phase)
-                target_col = 0 if qx == 1 else 1
-                pad = shift_fullres(quad, py, target_col, dy, 0, border)[..., :, 0:1]
-            return jnp.concatenate([pad, p[..., :, :-1]], axis=-1)
-        if border == "reflect101":
-            pad = p[..., :, -1:] if qx == 0 else p[..., :, -2:-1]
-        elif border == "replicate":
-            if qx == 1:
-                pad = p[..., :, -1:]
-            else:
-                # full col >= W clamps to W-1 (phase 1)
-                pad = shift_fullres(quad, py, 1, dy, 0, border)[..., :, -1:]
-        else:  # symmetric: full W -> W-1 ; full W+1 -> W-2 (cross-phase)
-            target_col = 1 if qx == 0 else 0
-            pad = shift_fullres(quad, py, target_col, dy, 0, border)[..., :, -1:]
-        return jnp.concatenate([p[..., :, 1:], pad], axis=-1)
-
-    return col_view(plane, ox)
-
-
-def conv3x3_poly(quad: Quad, kernel: np.ndarray, border: str = "reflect101") -> Quad:
-    """Full-res 3x3 cross-correlation in phase space (== filter2d on the mosaic)."""
-    k = np.asarray(kernel, np.float64)
-    out = [[None, None], [None, None]]
-    for py in (0, 1):
-        for px in (0, 1):
-            acc = None
-            for dy in (-1, 0, 1):
-                for dx in (-1, 0, 1):
-                    c = float(k[dy + 1, dx + 1])
-                    if c == 0.0:
-                        continue
-                    term = shift_fullres(quad, py, px, dy, dx, border)
-                    if c != 1.0:
-                        term = term * jnp.float32(c)
-                    acc = term if acc is None else acc + term
-            out[py][px] = acc
-    return ((out[0][0], out[0][1]), (out[1][0], out[1][1]))
-
-
-def median5_poly(quad: Quad) -> Quad:
-    """Full-res 5x5 median (replicate border) in phase space (== median5 on mosaic)."""
-    from .stencil import _median_of
-
-    out = [[None, None], [None, None]]
-    for py in (0, 1):
-        for px in (0, 1):
-            views = [
-                shift_fullres(quad, py, px, dy, dx, "replicate")
-                for dy in range(-2, 3)
-                for dx in range(-2, 3)
-            ]
-            out[py][px] = _median_of(views)
-    return ((out[0][0], out[0][1]), (out[1][0], out[1][1]))

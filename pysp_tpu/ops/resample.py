@@ -53,10 +53,8 @@ def _lanczos4_weight_planes(frac: Array) -> list:
     """8 Lanczos (a=4) tap weights for taps at offsets -3..4 from floor(coord).
 
     Weights normalized to sum 1 (cv2 does the same). frac shape (...,); output is a
-    list of 8 arrays shaped like ``frac``. Per-tap-plane form (no trailing-8 axis, no
-    1-D iota) so the banded Pallas remap kernel can share it verbatim — Mosaic wants
-    2-D lane-major arrays. The normalization sum accumulates taps in ascending order
-    so the kernel and the XLA paths stay bit-identical to each other.
+    list of 8 arrays shaped like ``frac``. The normalization sum accumulates taps
+    in ascending order, so the gather and select-chain remaps stay bit-identical.
     """
     eps = 1e-7
     planes = []
@@ -78,39 +76,6 @@ def _lanczos4_weight_planes(frac: Array) -> list:
 def _lanczos4_weights(frac: Array) -> Array:
     """Stacked (…, 8) view of :func:`_lanczos4_weight_planes`."""
     return jnp.stack(_lanczos4_weight_planes(frac), axis=-1)
-
-
-# Degree-8 least-squares fits of each Lanczos-4 tap weight w_k(f) over
-# f in [0, 1) (highest power first). Max |error| 5.4e-7 in f32 — three orders
-# tighter than cv2's own 1/32 fixed-point weight tables, at 8 fma per tap
-# instead of 2 VPU sin expansions (the sins dominated the banded remap
-# kernel's runtime: ~32 polynomial-lowered transcendentals per pixel).
-_LANCZOS4_POLY = (
-    (1.1228713046e-02, -7.5389312184e-02, 1.5240701459e-01, -2.5139795552e-02, -2.1615141083e-01, 1.0761706270e-01, 1.4547219801e-01, -1.0004465364e-01, 1.0290660892e-07),
-    (-9.0391865058e-03, 9.5405358413e-02, -2.6082567146e-01, 1.0980564579e-01, 4.4437299390e-01, -3.7934497086e-01, -3.1870127857e-01, 3.1832747434e-01, -1.9269257216e-07),
-    (5.2961223007e-03, -1.1110975927e-01, 3.6265303841e-01, -1.4099767665e-01, -7.7632224927e-01, 4.6674368654e-01, 1.0940775960e+00, -9.0034129454e-01, 2.7531904871e-07),
-    (-1.6437527252e-03, 1.1751637042e-01, -4.0837569327e-01, 7.9785392590e-02, 9.5509271933e-01, 5.9822086630e-03, -1.7483858753e+00, 2.9273129194e-05, 9.9999967605e-01),
-    (-1.6437527335e-03, -1.0436634859e-01, 3.6821382334e-01, -5.3248592401e-03, -7.7360544265e-01, -4.7771595881e-01, 1.0941542962e+00, 9.0028759962e-01, 3.1890407997e-07),
-    (5.2961223016e-03, 6.8740780863e-02, -2.6682385207e-01, 1.8015420672e-03, 4.4037193015e-01, 3.8772003454e-01, -3.1881955065e-01, -3.1828647072e-01, -2.6115771394e-07),
-    (-9.0391865059e-03, -2.3091866366e-02, 1.5391461527e-01, -4.2169699362e-02, -2.1253936004e-01, -1.1268313352e-01, 1.4558846272e-01, 1.0001980276e-01, 1.7235648616e-07),
-    (1.1228713046e-02, -1.4440392181e-02, -6.0914205416e-02, 6.5065333300e-02, 9.1638817063e-02, -2.9935759833e-02, -6.2649406093e-02, 7.0839757647e-06, -8.0954240484e-08),
-)
-
-
-def _lanczos4_weight_planes_fast(frac: Array) -> list:
-    """Polynomial Lanczos-4 tap weights (see _LANCZOS4_POLY): Horner per tap,
-    ascending-tap normalization like the exact helper. ~5e-6 weight error
-    after normalization; used by the banded Pallas remap kernel."""
-    planes = []
-    for coefs in _LANCZOS4_POLY:
-        acc = jnp.full_like(frac, jnp.float32(coefs[0]))
-        for cc in coefs[1:]:
-            acc = acc * frac + jnp.float32(cc)
-        planes.append(acc)
-    total = planes[0]
-    for k in range(1, 8):
-        total = total + planes[k]
-    return [w / total for w in planes]
 
 
 def remap_lanczos4(img: Array, map_x: Array, map_y: Array) -> Array:
@@ -165,12 +130,10 @@ def remap_bilinear_bounded(
 ) -> Array:
     """remap_bilinear for displacement-bounded smooth maps — BIT-IDENTICAL.
 
-    TPU gathers run at ~10-25 ns per gathered element (benchmarks/remap_probe),
-    which makes gather remaps ~1000x slower than the arithmetic they feed.
     When floor(map) - identity lies in the STATIC inclusive ranges
     ``dy_bounds``/``dx_bounds`` (true for lens-distortion and CA warps), each
-    corner VALUE is instead selected (`where`-chains over clamped shifts of
-    ``img``) — pure shift/compare/select VPU work that XLA fuses. Selection
+    corner VALUE is selected (`where`-chains over clamped shifts of ``img``)
+    instead of gathered — pure shift/compare/select work that XLA fuses. Selection
     picks exact values, so the lerps below reproduce remap_bilinear bit for
     bit. Deltas outside the bounds are clipped (callers must supply true
     bounds; remap_bilinear remains the reference for unbounded maps).
@@ -256,34 +219,14 @@ def remap_lanczos4_bounded(
     return out
 
 
-# Accuracy budget (px) for the separable two-pass banded-remap kinds: callers
-# enable "*_sep" only when the host-computed position-error bound sits below
-# cv2's own fixed-point position quantization (1/32 px, INTER_BITS=5) — i.e.
-# never less accurate than the reference's resampler. See
-# pallas_kernels._remap_kernel and warp/rectilinear.warp_sep_pos_error.
-SEP_POS_ERR_BUDGET = 1.0 / 32.0
-
-
 def remap_bounded(
     img: Array, map_x: Array, map_y: Array,
     dy_bounds: Tuple[int, int], dx_bounds: Tuple[int, int],
-    kind: str = "bilinear", use_pallas: bool = True,
+    kind: str = "bilinear",
 ) -> Array:
-    """Displacement-bounded remap dispatch: banded Pallas kernel on TPU
-    (one HBM pass; ops/pallas_kernels.remap_bounded_pallas), XLA select
-    remaps elsewhere. With in-range bounds the bilinear paths are
-    bit-identical to the gather remaps on both backends; the TPU lanczos4
-    kernel uses the polynomial tap weights (resample._LANCZOS4_POLY,
-    <= ~1e-5 output delta vs the exact-sin XLA path — see the
-    remap_bounded_pallas notes and DIVERGENCES.md)."""
-    import jax
-
-    if use_pallas and jax.default_backend() == "tpu" and img.ndim == 2:
-        from .pallas_kernels import remap_bounded_pallas
-
-        out = remap_bounded_pallas(img, map_x, map_y, dy_bounds, dx_bounds, kind)
-        if out is not None:
-            return out
+    """Displacement-bounded remap (``kind`` "bilinear" or "lanczos4"): the
+    select-chain remaps, bit-identical to the gather remaps when the bounds
+    hold."""
     fn = remap_lanczos4_bounded if kind == "lanczos4" else remap_bilinear_bounded
     return fn(img, map_x, map_y, dy_bounds, dx_bounds)
 

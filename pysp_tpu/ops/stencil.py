@@ -57,11 +57,11 @@ def _expand_pad(pad: int | Sequence[int]) -> tuple[int, int, int, int]:
 def _conv_valid(x: Array, kernel: Array) -> Array:
     """VALID cross-correlation on the last two axes; leading axes are batched.
 
-    Implemented as shift-and-add rather than lax.conv: XLA's TPU lowering of
-    single-channel 2D convolutions pads the channel dims onto MXU tiles with up to
-    ~128x memory expansion (observed 92MB -> 11.5GB at 24MP), while k*k shifted
-    multiply-adds are pure VPU work that fuses with neighbors, keeps exact f32
-    accumulation, and skips zero taps (the photosite phase kernels are half zeros).
+    Implemented as shift-and-add rather than lax.conv: a single-channel 2D
+    convolution is a separate (possibly reduced-precision) convolution kernel,
+    while k*k shifted multiply-adds are elementwise work that fuses with
+    neighbors, keeps exact f32 accumulation, and skips zero taps (the photosite
+    phase kernels are half zeros).
     """
     kh, kw = kernel.shape
     h = x.shape[-2] - kh + 1
@@ -74,9 +74,9 @@ def _conv_valid(x: Array, kernel: Array) -> Array:
             coeff = float(k_host[dy, dx])
             if coeff == 0.0:
                 continue
-            # NOTE: always emit the multiply, even for coeff 1.0 — an earlier
-            # "skip mul-by-1" fast path broke XLA's fusion of the EAG phase
-            # kernels on TPU (Fast develop 8.5 -> 33.5 ms). x*1.0 == x exactly.
+            # NOTE: always emit the multiply, even for coeff 1.0 — a
+            # "skip mul-by-1" fast path changes the graph XLA fuses for the
+            # EAG phase kernels, for no arithmetic gain. x*1.0 == x exactly.
             term = x[..., dy : dy + h, dx : dx + w] * jnp.asarray(coeff, x.dtype)
             out = term if out is None else out + term
     if out is None:
@@ -215,7 +215,7 @@ def _median_network(n: int):
 
     # Backward pruning: track which wires can still influence the target output.
     # Comparators whose min- or max-side output is dead downstream degrade to a
-    # single jnp.minimum / jnp.maximum (halves the VPU ops for those wires).
+    # single jnp.minimum / jnp.maximum (halves the ops for those wires).
     needed = {target}
     kept = []
     for kind, i, j in reversed(ops):

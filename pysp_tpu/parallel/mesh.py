@@ -1,9 +1,10 @@
 """Device mesh helpers for batched / spatially-sharded develops.
 
 The reference has no multi-device execution of any kind (SURVEY.md §2.10); this layer
-is the additive TPU-native capability: a ('batch', 'spatial') mesh where the batch axis
+is an additive capability: a ('batch', 'spatial') mesh where the batch axis
 data-parallels burst frames and the spatial axis shards a single large sensor's rows
-with halo exchange over ICI.
+with halo exchange. The cards of one host reach each other all to all (NVLink), so
+the mesh shape follows the algorithm alone.
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@ production layouts, matching how the work actually decomposes:
   ``lax.psum`` (the HDR fuse IS a collective), the fused frame lands replicated
   on every device, and the single develop that follows is row-sharded over
   'spatial' — slicing halos from the replicated fused frame, so the develop
-  stage needs zero ICI traffic.
+  stage moves no data between devices.
 
 Round 5 closed the last surveyed edge: CA removal and the DNG warp row-shard
 too. A ('batch', 'spatial') mesh routes ``develop_pipeline_sharded`` through
@@ -166,7 +166,7 @@ def develop_pipeline_sharded(
         mesh=mesh,
         in_specs=(bspec, *cal_specs),
         out_specs=P(BATCH_AXIS, None, None, None),
-        check_vma=False,  # Pallas outputs carry no vma annotation
+        check_vma=False,  # loop carries mix replicated and per-shard values
     )
     return jax.jit(sharded)(_leaves(frames), *cal_leaves)
 
@@ -323,6 +323,6 @@ def develop_hdr_sharded(
         mesh=mesh,
         in_specs=(bspec, *cal_specs),
         out_specs=P(SPATIAL_AXIS, None, None),
-        check_vma=False,  # see develop_pipeline_sharded
+        check_vma=False,  # loop carries mix replicated and per-shard values
     )
     return jax.jit(sharded)(_leaves(frames), *cal_leaves)

@@ -2,7 +2,7 @@
 
 The CP/sequence-parallel analog for images (SURVEY.md §2.10 / §5 long-context row):
 a single large sensor's rows are sharded across the mesh's 'spatial' axis; each device
-exchanges a CFA-aligned halo with its neighbors over ICI (``lax.ppermute``), develops
+exchanges a CFA-aligned halo with its neighbors (``lax.ppermute``), develops
 its padded block locally (the stencil pipeline never reaches past the halo), and crops.
 
 Halo semantics:
@@ -47,21 +47,16 @@ def develop_spatial(
     cfg: DevelopConfig,
     mesh: Mesh,
     halo: int = 16,
-    _develop_fn=None,
 ) -> Array:
     """Develop one frame with its rows sharded over the mesh's spatial axis.
 
-    The Pallas megakernel stays enabled inside shard_map: halos are exchanged
-    BEFORE the local develop, so the kernel is purely device-local (no collective
-    crosses it). Parity is gated by test_parallel.py (interpret-mode kernel under
-    shard_map on the virtual mesh) and benchmarks/shard_pallas_check.py (real
-    chip, 1-device mesh vs monolithic megakernel).
-
-    ``_develop_fn(frame, cfg) -> (H, W, 3)`` overrides the local develop (test
-    hook for interpret-mode kernels).
+    Halos are exchanged BEFORE the local develop, so the develop itself is
+    purely device-local (no collective crosses it). Parity is gated by
+    test_parallel.py on the virtual mesh and by ``chip_smoke.py --multi`` on
+    four GPUs.
     """
     assert halo % 2 == 0, "halo must keep CFA phase"
-    dev_fn = _develop_fn or develop.__wrapped__
+    dev_fn = develop.__wrapped__
     n_sp = mesh.shape[SPATIAL_AXIS]
     h = frame.bayer.shape[0]
     assert h % (2 * n_sp) == 0, f"height {h} must split into CFA-aligned blocks"
@@ -69,7 +64,7 @@ def develop_spatial(
     def block_fn(bayer_block, cam_mat, cam_white, wb_neutral, ev, lim_sat):
         idx = lax.axis_index(SPATIAL_AXIS)
 
-        # Neighbor halos over ICI. ppermute leaves non-receivers zero-filled;
+        # Neighbor halos. ppermute leaves non-receivers zero-filled;
         # global edges fall back to CFA-preserving reflection.
         send_up = [(i, i - 1) for i in range(1, n_sp)]
         send_down = [(i, i + 1) for i in range(n_sp - 1)]
@@ -106,8 +101,7 @@ def develop_spatial(
         mesh=mesh,
         in_specs=(P(SPATIAL_AXIS, None), P(), P(), P(), P(), P()),
         out_specs=P(SPATIAL_AXIS, None, None),
-        # Pallas outputs (ShapeDtypeStruct) carry no vma annotation; skip the check
-        check_vma=False,
+        check_vma=False,  # loop carries mix replicated and per-shard values
     )
     fn = jax.jit(sharded)
     return fn(
@@ -150,7 +144,7 @@ def develop_burst_sharded(
         mesh=mesh,
         in_specs=(P(BATCH_AXIS, None, None), spec, spec, spec, spec, spec),
         out_specs=P(BATCH_AXIS, None, None, None),
-        check_vma=False,  # see develop_spatial
+        check_vma=False,  # loop carries mix replicated and per-shard values
     )
     return jax.jit(sharded)(
         frames.bayer,
@@ -167,16 +161,14 @@ def develop_burst_spatial(
     cfg: DevelopConfig,
     mesh: Mesh,
     halo: int = 16,
-    _develop_fn=None,
 ) -> Array:
     """Fully sharded burst develop: frame axis over 'batch' AND rows over 'spatial'.
 
     This is the production layout for large bursts of large sensors: data parallelism
-    over frames, spatial row-sharding with ICI halo exchange within each frame.
-    ``_develop_fn`` overrides the local develop (see develop_spatial).
+    over frames, spatial row-sharding with halo exchange within each frame.
     """
     assert halo % 2 == 0
-    dev_fn = _develop_fn or develop.__wrapped__
+    dev_fn = develop.__wrapped__
     n_b = mesh.shape[BATCH_AXIS]
     n_sp = mesh.shape[SPATIAL_AXIS]
     n, h = frames.bayer.shape[0], frames.bayer.shape[1]
@@ -222,7 +214,7 @@ def develop_burst_spatial(
         mesh=mesh,
         in_specs=(P(BATCH_AXIS, SPATIAL_AXIS, None), bspec, bspec, bspec, bspec, bspec),
         out_specs=P(BATCH_AXIS, SPATIAL_AXIS, None, None),
-        check_vma=False,  # see develop_spatial
+        check_vma=False,  # loop carries mix replicated and per-shard values
     )
     return jax.jit(sharded)(
         frames.bayer,

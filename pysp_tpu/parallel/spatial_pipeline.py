@@ -48,7 +48,7 @@ from jax.sharding import PartitionSpec as P
 from ..core.bayer import bayer_to_rgbg, rgbg_to_bayer
 from ..core.frame import RawFrame
 from ..demosaic.eag import resample_b, resample_g_to_full_resolution, resample_r
-from ..ops.resample import SEP_POS_ERR_BUDGET, remap_bounded
+from ..ops.resample import remap_bounded
 from ..pipeline.develop import develop
 from ..pipeline.pipeline import PipelineConfig, _correct_one
 from .mesh import SPATIAL_AXIS
@@ -66,62 +66,12 @@ def _ceil_even(v: float) -> int:
     return n + (n & 1)
 
 
-def _ca_setup(model, full_h: int, full_w: int):
-    """(bound_px, kind_inv, kind_fwd, rects_inv, rects_fwd) for one model's
-    remaps on the full frame, or None when the model's displacement has no
-    usable static bound. ``rects_*`` are the in-shard column rectangles for
-    medium-format widths (see _col_rects_for), None when full-width fits."""
-    from ..correct.ca.removal import (
-        _model_bound_px,
-        _model_rect_bounds,
-        _model_scales,
-        _model_sep_pos_error,
-    )
-    import numpy as _np
+def _ca_bound(model, full_h: int, full_w: int) -> Optional[int]:
+    """Static displacement bound (px) of one CA model's remaps on the full
+    frame, or None when the model's displacement has no usable static bound."""
+    from ..correct.ca.removal import _model_bound_px
 
-    from ..ops.pallas_kernels import remap_fits_full_width
-
-    bound = _model_bound_px(model, full_h, full_w, cap=24)
-    if bound is None:
-        return None
-    bb = (-bound, bound)
-    if bound > 12 and remap_fits_full_width("bilinear", full_w, bb, bb):
-        # wide bound but narrow frame: full-width select chains would actually
-        # run — keep the monolithic path's refusal (correct/ca/removal.py)
-        return None
-    kinds = []
-    rects = []
-    rs64 = _np.linspace(1e-4, 1.0, 4096)
-    for direction in ("inv", "fwd"):
-        # sep kinds exist only in the Pallas kernels: off-TPU the XLA fallback
-        # would silently run plain bilinear where lanczos/exact was meant
-        err = (
-            _model_sep_pos_error(
-                [model], full_h, full_w, bb, direction=direction
-            )
-            if jax.default_backend() == "tpu"
-            else None
-        )
-        kinds.append(
-            "bilinear_sep"
-            if err is not None and err <= SEP_POS_ERR_BUDGET
-            else "bilinear"
-        )
-        scales = _model_scales([model], direction)
-        rects.append(
-            _col_rects_for(
-                "bilinear",
-                full_w,
-                bb,
-                bb,
-                lambda c0, c1: _model_rect_bounds(
-                    scales, rs64, full_h, full_w, (0, full_h), (c0, c1)
-                ),
-            )
-            if scales is not None
-            else None
-        )
-    return bound, kinds[0], kinds[1], rects[0], rects[1]
+    return _model_bound_px(model, full_h, full_w, cap=24)
 
 
 def _warp_setup(
@@ -140,7 +90,7 @@ def _warp_setup(
         decode_warp_rectilinear,
         iter_opcodes,
     )
-    from ..warp.rectilinear import displacement_bounds, warp_sep_pos_error
+    from ..warp.rectilinear import displacement_bounds
 
     ops = []
     for opcode_id, _ver, _flags, data in iter_opcodes(warp_block):
@@ -164,40 +114,13 @@ def _warp_setup(
             )
         dyb = (min(b[0][0] for b in bs), max(b[0][1] for b in bs))
         dxb = (min(b[1][0] for b in bs), max(b[1][1] for b in bs))
-        kind = interpolation
-        # sep kinds are Pallas-only (see _ca_setup note)
-        if interpolation in ("bilinear", "lanczos4") and (
-            jax.default_backend() == "tpu"
-        ):
-            reach = 4 if interpolation == "lanczos4" else 1
-            err = warp_sep_pos_error(
-                unique, full_w, full_h, center, scale, dxb, reach
-            )
-            if err <= SEP_POS_ERR_BUDGET:
-                kind = interpolation + "_sep"
-
-        def rect_bounds(c0, c1, _unique=unique):
-            rbs = [
-                displacement_bounds(
-                    co, full_w, full_h, center, scale, col_range=(c0, c1)
-                )
-                for co in _unique
-            ]
-            if any(b is None for b in rbs):
-                return dyb, dxb  # fall back to global (rect gains nothing)
-            return (
-                (min(b[0][0] for b in rbs), max(b[0][1] for b in rbs)),
-                (min(b[1][0] for b in rbs), max(b[1][1] for b in rbs)),
-            )
-
-        col_rects = _col_rects_for(interpolation, full_w, dyb, dxb, rect_bounds)
-        ops.append((coefficients, center, (dyb, dxb), kind, col_rects))
+        ops.append((coefficients, center, (dyb, dxb), interpolation))
     return ops
 
 
 def required_spatial_halo(
     cfg: PipelineConfig,
-    ca_setups,
+    ca_bounds,
     warp_ops,
     interpolation: str,
 ) -> int:
@@ -217,66 +140,15 @@ def required_spatial_halo(
     if cfg.denoise_strength > 0.0:
         # dilated B3: reach 2*2^l per level per axis, half-res planes
         h += 4 * ((1 << cfg.denoise_levels) - 1) + 4
-    for setup in ca_setups:
-        if setup is not None:
-            bound = setup[0]
+    for bound in ca_bounds:
+        if bound is not None:
             # inverse warp + EAG guide/channel resamples + forward warp
             h += 2 * bound + 16
     h += 16  # develop stencil reach (spatial.develop_spatial's default)
     reach = 4 if interpolation == "lanczos4" else 1
-    for _co, _ce, (dyb, _dxb), *_rest in warp_ops:
+    for _co, _ce, (dyb, _dxb), _kind in warp_ops:
         h += max(abs(dyb[0]), abs(dyb[1])) + reach + 2
     return _ceil_even(h)
-
-
-def _col_rects_for(kind: str, full_w: int, dyb, dxb, rect_bounds_fn):
-    """Static column rectangles for the in-shard remaps, or None when the
-    full-width launch already fits VMEM.
-
-    Why rect-zoning survives shard_map's one-program constraint: column
-    positions are ABSOLUTE (shard-invariant), so per-rect dx bounds are the
-    same static values on every shard; only the dy bounds must stay at the
-    global union (rows span shards). ``rect_bounds_fn(c0, c1) -> (dy, dx)``
-    computes a rect's host-side bounds. Escalates granularity until every
-    rect's (width, spans) fit the minimum tile.
-    """
-    from ..ops.pallas_kernels import col_zone_edges, remap_fits_full_width
-
-    if remap_fits_full_width(kind, full_w, dyb, dxb):
-        return None
-    for n in (4, 8, 12):
-        edges = col_zone_edges(full_w, n)
-        if edges is None:
-            continue
-        rects = []
-        ok = True
-        for c0, c1 in zip(edges, edges[1:]):
-            _dyb_r, dxb_r = rect_bounds_fn(c0, c1)
-            if not remap_fits_full_width(kind, c1 - c0, dyb, dxb_r):
-                ok = False
-                break
-            rects.append((c0, c1, dxb_r))
-        if ok and rects:
-            return rects
-    return None
-
-
-def _shard_remap(img_ext, mx, my, dyb, dxb, kind, col_rects):
-    """One shard-local remap: rect-zoned banded launches when ``col_rects``
-    is given (medium-format widths), the plain bounded remap otherwise."""
-    import jax as _jax
-
-    if col_rects is not None and _jax.default_backend() == "tpu":
-        from ..ops.pallas_kernels import remap_bounded_pallas_grid
-
-        hb = img_ext.shape[-2]
-        col_zones = [
-            (c0, c1, [(0, hb, dyb, dxb_r)], None) for c0, c1, dxb_r in col_rects
-        ]
-        out = remap_bounded_pallas_grid(img_ext, mx, my, col_zones, kind)
-        if out is not None:
-            return out
-    return remap_bounded(img_ext, mx, my, dyb, dxb, kind=kind)
 
 
 # ---------------------------------------------------------------------------
@@ -306,8 +178,8 @@ def _remove_ca_window(
     wb: Array,
     full_shape: Tuple[int, int],
     b0,
-    setup_r,
-    setup_b,
+    bound_r: Optional[int],
+    bound_b: Optional[int],
 ) -> Array:
     """remove_ca_from_raw's per-channel program on a halo-extended row shard
     (ca_removal.py:48-132 semantics; maps windowed to absolute rows)."""
@@ -315,24 +187,21 @@ def _remove_ca_window(
     g_res = resample_g_to_full_resolution(g1, g2)
     hb = g_res.shape[-2]
 
-    def correct_channel(half_plane, model, setup, resample, plane_idx, gain):
-        bound, kind_inv, kind_fwd, rects_inv, rects_fwd = setup
+    def correct_channel(half_plane, model, bound, resample, plane_idx, gain):
         bb = (-bound, bound)
-        g_at = _shard_remap(
-            g_res, *_window_maps(model, "inv", hb, b0, full_shape), bb, bb,
-            kind_inv, rects_inv,
+        g_at = remap_bounded(
+            g_res, *_window_maps(model, "inv", hb, b0, full_shape), bb, bb
         )
         chan_res = resample(half_plane * gain, g_at)
-        chan_at_g = _shard_remap(
-            chan_res, *_window_maps(model, "fwd", hb, b0, full_shape), bb, bb,
-            kind_fwd, rects_fwd,
+        chan_at_g = remap_bounded(
+            chan_res, *_window_maps(model, "fwd", hb, b0, full_shape), bb, bb
         )
         return bayer_to_rgbg(chan_at_g)[plane_idx] / gain
 
-    if model_r is not None and setup_r is not None:
-        r = correct_channel(r, model_r, setup_r, resample_r, 0, wb[0])
-    if model_b is not None and setup_b is not None:
-        b = correct_channel(b, model_b, setup_b, resample_b, 2, wb[2])
+    if model_r is not None and bound_r is not None:
+        r = correct_channel(r, model_r, bound_r, resample_r, 0, wb[0])
+    if model_b is not None and bound_b is not None:
+        b = correct_channel(b, model_b, bound_b, resample_b, 2, wb[2])
     return rgbg_to_bayer(r, g1, b, g2)
 
 
@@ -350,7 +219,7 @@ def _warp_window(
 
     full_h, full_w = full_shape
     hb = img_ext.shape[0]
-    for coefficients, center, (dyb, dxb), kind, col_rects in warp_ops:
+    for coefficients, center, (dyb, dxb), kind in warp_ops:
         maps = {}
         for co in dict.fromkeys(tuple(float(v) for v in c) for c in coefficients):
             mx, my = compute_remapping_table_window(
@@ -364,9 +233,7 @@ def _warp_window(
             co = tuple(float(v) for v in coefficients[idx])
             mx, my = maps[co]
             planes.append(
-                _shard_remap(
-                    img_ext[:, :, idx], mx, my, dyb, dxb, kind, col_rects
-                )
+                remap_bounded(img_ext[:, :, idx], mx, my, dyb, dxb, kind=kind)
             )
         img_ext = jnp.stack(planes, axis=-1)
     return img_ext
@@ -412,12 +279,12 @@ def develop_frame_spatial(
         )
     rows_local = full_h // n_sp
 
-    setup_r = _ca_setup(ca_model_r, full_h, full_w) if ca_model_r is not None else None
-    setup_b = _ca_setup(ca_model_b, full_h, full_w) if ca_model_b is not None else None
-    if ca_model_r is not None and setup_r is None:
+    bound_r = _ca_bound(ca_model_r, full_h, full_w) if ca_model_r is not None else None
+    bound_b = _ca_bound(ca_model_b, full_h, full_w) if ca_model_b is not None else None
+    if ca_model_r is not None and bound_r is None:
         raise ValueError("red CA model has no static displacement bound; "
                          "spatial sharding unavailable for it")
-    if ca_model_b is not None and setup_b is None:
+    if ca_model_b is not None and bound_b is None:
         raise ValueError("blue CA model has no static displacement bound; "
                          "spatial sharding unavailable for it")
 
@@ -429,7 +296,7 @@ def develop_frame_spatial(
 
     if halo is None:
         halo = required_spatial_halo(
-            cfg, (setup_r, setup_b), warp_ops, warp_interpolation
+            cfg, (bound_r, bound_b), warp_ops, warp_interpolation
         )
     assert halo % 2 == 0, "halo must keep CFA phase"
     use_gather = halo >= rows_local  # tiny blocks: assemble from a full gather
@@ -496,11 +363,11 @@ def develop_frame_spatial(
                 axis_name=SPATIAL_AXIS, core_rows=core_rows,
             )
 
-        if setup_r is not None or setup_b is not None:
+        if bound_r is not None or bound_b is not None:
             corrected = _remove_ca_window(
                 frame_ext.bayer, ca_model_r, ca_model_b,
                 frame_ext.wb_reciprocal(), (full_h, full_w), b0,
-                setup_r, setup_b,
+                bound_r, bound_b,
             )
             frame_ext = frame_ext.replace(bayer=corrected)
 
@@ -519,7 +386,7 @@ def develop_frame_spatial(
         mesh=mesh,
         in_specs=(P(SPATIAL_AXIS, None), rep, rep, rep, rep, rep, *cal_specs),
         out_specs=P(SPATIAL_AXIS, None, None),
-        check_vma=False,  # Pallas outputs carry no vma annotation
+        check_vma=False,  # loop carries mix replicated and per-shard values
     )
     return jax.jit(sharded)(
         frame.bayer, frame.cam_mat, frame.cam_white, frame.wb_neutral,
@@ -564,10 +431,10 @@ def develop_pipeline_spatial(
         )
     rows_local = full_h // n_sp
 
-    setup_r = _ca_setup(ca_model_r, full_h, full_w) if ca_model_r is not None else None
-    setup_b = _ca_setup(ca_model_b, full_h, full_w) if ca_model_b is not None else None
-    if (ca_model_r is not None and setup_r is None) or (
-        ca_model_b is not None and setup_b is None
+    bound_r = _ca_bound(ca_model_r, full_h, full_w) if ca_model_r is not None else None
+    bound_b = _ca_bound(ca_model_b, full_h, full_w) if ca_model_b is not None else None
+    if (ca_model_r is not None and bound_r is None) or (
+        ca_model_b is not None and bound_b is None
     ):
         raise ValueError("CA model has no static displacement bound; "
                          "spatial sharding unavailable for it")
@@ -578,7 +445,7 @@ def develop_pipeline_spatial(
     )
     if halo is None:
         halo = required_spatial_halo(
-            cfg, (setup_r, setup_b), warp_ops, warp_interpolation
+            cfg, (bound_r, bound_b), warp_ops, warp_interpolation
         )
     assert halo % 2 == 0
     use_gather = halo >= rows_local
@@ -670,11 +537,11 @@ def develop_pipeline_spatial(
                     f, cfg, flat_f, dark_f, shared_masks,
                     axis_name=SPATIAL_AXIS, core_rows=core_rows,
                 )
-            if setup_r is not None or setup_b is not None:
+            if bound_r is not None or bound_b is not None:
                 f = f.replace(
                     bayer=_remove_ca_window(
                         f.bayer, ca_model_r, ca_model_b, f.wb_reciprocal(),
-                        (full_h, full_w), b0, setup_r, setup_b,
+                        (full_h, full_w), b0, bound_r, bound_b,
                     )
                 )
             img = develop.__wrapped__(f, cfg.develop)
@@ -695,7 +562,7 @@ def develop_pipeline_spatial(
         mesh=mesh,
         in_specs=(*bspec, *cal_specs),
         out_specs=P(BATCH_AXIS, SPATIAL_AXIS, None, None),
-        check_vma=False,
+        check_vma=False,  # loop carries mix replicated and per-shard values
     )
     return jax.jit(sharded)(
         frames.bayer, frames.cam_mat, frames.cam_white, frames.wb_neutral,

@@ -6,7 +6,7 @@ This is the fused equivalent of the reference's canonical user flow
     image.demosaic(quality) -> .to_lin_srgb() -> lin_srgb_to_srgb(...)
 
 ``DevelopConfig`` is a frozen, hashable dataclass used as a static jit argument, so the
-compiled program specializes per configuration (the TPU-native analog of the reference's
+compiled program specializes per configuration (the analog of the reference's
 keyword-argument knobs; SURVEY.md §5 config row).
 
 Batched develops: ``develop_burst`` vmaps over a leading frame axis — per-frame color
@@ -37,19 +37,16 @@ class DevelopConfig:
     postprocess_stages: int = 1
     clip_highlights: bool = True
     gamma_encode: bool = True
-    # Pallas fused-postprocess kernel on TPU (bit-exact; 501 -> 531 MP/s at 24MP);
-    # ignored off-TPU and forced off under vmap (manual-DMA kernels don't vmap).
-    use_pallas: bool = True
     # "clip" = reference behavior (saturate at 1.0, blown areas render white);
     # "reconstruct" = rebuild clipped channels from unclipped ones + soft-knee
     # compress (correct/highlights.py) — a libraw capability the reference
-    # never exposes. Reconstruction bypasses the fused megakernel tail.
+    # never exposes.
     highlights: str = "clip"
 
 
 def develop_to_image(frame: RawFrame, cfg: DevelopConfig) -> DevelopedImage:
     """Demosaic + un-canonicalize to the source pattern orientation (image.py:177-183)."""
-    dev = demosaic(frame, cfg.quality, cfg.postprocess_stages, cfg.use_pallas)
+    dev = demosaic(frame, cfg.quality, cfg.postprocess_stages)
     if frame.source_pattern != BayerPattern.Rggb:
         dev = dev.replace(
             image=reversible_transform_rggb(dev.image, frame.source_pattern)
@@ -63,17 +60,8 @@ def _demosaic_channels(frame: RawFrame, cfg: DevelopConfig):
     from ..demosaic.eag import demosaic_eag_channels
 
     if cfg.quality == QualityDemosaic.Best:
-        if cfg.use_pallas and jax.default_backend() == "tpu" and frame.bayer.ndim == 2:
-            from ..demosaic.ahd_mega import demosaic_ahd_mega
-
-            # Whole-AHD megakernel (every stage in VMEM, 1 HBM round-trip);
-            # falls back internally for shapes it cannot tile or stitch.
-            return demosaic_ahd_mega(frame, cfg.postprocess_stages)
-        return demosaic_ahd_channels(frame, cfg.postprocess_stages, cfg.use_pallas)
+        return demosaic_ahd_channels(frame, cfg.postprocess_stages)
     if cfg.quality == QualityDemosaic.Fast:
-        # No Pallas path: an EAG megakernel measured 8.4 ms either way at 24 MP
-        # (EAG is VPU-bound and XLA already fuses it fully), so it was removed
-        # in round 2 rather than kept off-dispatch.
         return demosaic_eag_channels(frame)
     if cfg.quality == QualityDemosaic.Draft:
         return demosaic_draft_channels(frame)
@@ -111,11 +99,9 @@ def _color_tail_channels(
 def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Array:
     """Full develop: demosaic -> camera->lin-sRGB -> (optional) gamma encode.
 
-    Channelwise end-to-end with ONE channel stack at the very end — (H, W, 3)
-    stacking mid-pipeline costs relayout passes on TPU (see README design notes).
+    Channelwise end-to-end with ONE channel stack at the very end, so every
+    stage reads and writes plain 2D planes (see README design notes).
     Matches the stacked API path (demosaic().to_lin_srgb() + gamma) op for op.
-    On TPU the Best path fuses the tail INTO the megakernel (the 12 phase planes
-    leave the kernel sRGB-encoded; ~2-ulp pow divergence, see ahd_mega).
     """
     from ..colorimetry.transforms import cam_to_lin_srgb_matrix
 
@@ -146,31 +132,18 @@ def develop(frame: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Array:
         return out
 
     srgb = None
-    if (
-        cfg.quality == QualityDemosaic.Best
-        and cfg.use_pallas
-        and jax.default_backend() == "tpu"
-        and frame.bayer.ndim == 2
-    ):
-        from ..demosaic.ahd_mega import develop_channels_mega
-
-        srgb = develop_channels_mega(
-            frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode
-        )
-
-    if srgb is None and cfg.quality == QualityDemosaic.Draft and frame.bayer.ndim == 2:
+    if cfg.quality == QualityDemosaic.Draft and frame.bayer.ndim == 2:
         from ..demosaic.draft import develop_channels_draft
 
         # Polyphase fused Draft: tail at quarter res, one full-res assembly
-        # (17% over the separable upsample at 24 MP; ~1-ulp association delta).
+        # (~1-ulp association delta against the separable upsample).
         srgb = develop_channels_draft(frame, cfg.clip_highlights, cfg.gamma_encode)
 
     if srgb is None and cfg.quality == QualityDemosaic.Fast and frame.bayer.ndim == 2:
         from ..demosaic.eag import develop_channels_eag
 
         # Polyphase fused Fast: the whole EAG + tail in phase space, one
-        # full-res assembly per channel (the mid-pipeline interleaves were the
-        # tier's cost — see benchmarks/eag_probe.py and the BASELINE.md entry).
+        # full-res assembly per channel (no mid-pipeline interleaves).
         srgb = develop_channels_eag(frame, cfg.clip_highlights, cfg.gamma_encode)
 
     if srgb is None:
@@ -193,9 +166,8 @@ def develop_burst(frames: RawFrame, cfg: DevelopConfig = DevelopConfig()) -> Arr
     """Develop a burst: every pytree leaf of ``frames`` carries a leading batch axis.
 
     Frames run through lax.map (sequentially on-device), not vmap: one 24MP-class
-    frame already saturates the chip, and vmap's batched stencil layouts measured
-    2.6x slower (392 vs 1003 MP/s on 16x1.5MP AHD) while also forcing the Pallas
-    kernels off. Sequential mapping keeps the single-frame fast path intact."""
+    frame already fills the device, and sequential mapping keeps each frame on
+    the single-frame program's layouts."""
     return jax.lax.map(lambda f: develop.__wrapped__(f, cfg), frames)
 
 

@@ -166,7 +166,7 @@ def develop_pipeline(
 
     # static: does the config enable any per-frame correction at all? If not, the
     # burst lax.map below would scan an identity body — XLA materializes the scan
-    # carry, i.e. a full read+write copy of the burst (~1 ms per 480 MB at 24 MP x5)
+    # carry, i.e. a full read+write copy of the burst (480 MB at 24 MP x5)
     # for nothing.
     any_corrections = cfg.enables_per_frame_corrections
 

@@ -3,7 +3,7 @@
 The reference is a library of single-shot calls with no batch driver (SURVEY.md §1 —
 users loop in Python, each step blocking on the previous). For production serving the
 three phases of a develop have disjoint resources — host CPU (raw decode + PNG/TIFF
-encode), PCIe/ICI (transfers) and the TPU (the develop program) — so a stream that
+encode), PCIe (transfers) and the accelerator (the develop program) — so a stream that
 keeps all three busy hides nearly the whole host side behind device compute:
 
     decode[i+2] (thread pool) || develop[i+1] (device, async dispatch) || save[i] (thread)

@@ -2,7 +2,7 @@
 
 The reference has no tracing/metrics at all (SURVEY.md §5: one stray debug print).
 Here every develop can emit structured per-stage statistics computed inside the same
-XLA program (no extra passes), and ``trace`` wraps jax.profiler for TPU timelines.
+XLA program (no extra passes), and ``trace`` wraps jax.profiler for device timelines.
 """
 from __future__ import annotations
 

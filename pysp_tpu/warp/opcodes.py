@@ -102,15 +102,6 @@ def apply_opcode_3_warp(
         if decoded is None:
             continue
         coefficients, center = decoded
-        if prior is None:
-            from .rectilinear import warp_image_rectilinear
-
-            batched = warp_image_rectilinear(
-                image, coefficients, center, scale, interpolation
-            )
-            if batched is not None:
-                image = batched
-                continue
         planes = []
         for idx, coeff in enumerate(coefficients):
             chan_prior = None if prior is None else prior[idx]

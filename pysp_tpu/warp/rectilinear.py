@@ -131,21 +131,16 @@ def _floor_disp_minmax(
     height: int,
     cam_center_norm: Tuple[float, float],
     scale: float,
-    row_range: Tuple[int, int],
-    col_range: Tuple[int, int],
 ):
     """Memoizing front end for :func:`_floor_disp_minmax_impl` — a warp's
-    bounds are queried repeatedly while tracing (global gate + every grid
-    rectangle + per-channel dedup across retraces), and each query is a full
-    f64 sweep of its rectangle."""
+    bounds are queried repeatedly while tracing (per channel and across
+    retraces), and each query is a full f64 sweep of the frame."""
     return _floor_disp_minmax_impl(
         tuple(float(v) for v in coeffs),
         width,
         height,
         (float(cam_center_norm[0]), float(cam_center_norm[1])),
         float(scale),
-        (int(row_range[0]), int(row_range[1])),
-        (int(col_range[0]), int(col_range[1])),
     )
 
 
@@ -156,29 +151,24 @@ def _floor_disp_minmax_impl(
     height: int,
     cam_center_norm: Tuple[float, float],
     scale: float,
-    row_range: Tuple[int, int],
-    col_range: Tuple[int, int],
 ):
-    """EXACT floor-displacement extrema of the map over an output rectangle.
+    """EXACT floor-displacement extrema of the map over the output frame.
 
-    Sweeps EVERY pixel of the rectangle in f64 (blockwise, ~256 rows at a
+    Sweeps EVERY pixel in f64 (blockwise, ~256 rows at a
     time, so 24 MP frames never materialize a full-frame f64 field) and
-    reduces min/max of ``floor(map) - index`` per axis. Unlike the old coarse
-    256x256 sweep (margin 3 to cover grid gaps), this needs only margin 1 —
-    the f32 device map can floor at most one integer away from the f64 value —
-    which halves the select-chain spans at real lens-warp magnitudes
-    (BASELINE.md round-4 warp-bounds ledger).
+    reduces min/max of ``floor(map) - index`` per axis. An exact sweep needs
+    only margin 1 — the f32 device map can floor at most one integer away from
+    the f64 value — where a coarse grid sweep would need a wider margin (and
+    longer select chains) to cover the gaps between its samples.
     """
     import numpy as np
 
     cx, cy, m = _geometry(width, height, cam_center_norm)
     k = np.asarray(coeffs, np.float64)
-    r0, r1 = row_range
-    c0, c1 = col_range
-    xs = np.arange(c0, c1, dtype=np.float64)[None, :]
+    xs = np.arange(width, dtype=np.float64)[None, :]
     dy_lo = dy_hi = dx_lo = dx_hi = None
-    for b0 in range(r0, r1, 256):
-        b1 = min(b0 + 256, r1)
+    for b0 in range(0, height, 256):
+        b1 = min(b0 + 256, height)
         sy = np.arange(b0, b1, dtype=np.float64)[:, None]
         dx = (xs - cx) / m
         dy = (sy - cy) / m
@@ -207,337 +197,24 @@ def displacement_bounds(
     scale: float = 1.0,
     margin: int = 1,
     cap: int = 17,
-    row_range: Optional[Tuple[int, int]] = None,
-    col_range: Optional[Tuple[int, int]] = None,
 ):
     """Static floor-index displacement bounds of the rectilinear map.
 
-    Evaluated host-side at trace time over EVERY output pixel of the requested
-    rectangle (``_floor_disp_minmax``), so ``margin`` only needs to absorb the
+    Evaluated host-side at trace time over EVERY output pixel
+    (``_floor_disp_minmax``), so ``margin`` only needs to absorb the
     f32-vs-f64 floor crossing (1 px). Returns ((dy_lo, dy_hi), (dx_lo, dx_hi))
     for the bounded remaps, or None when either range exceeds ``cap``
     (select-chain cost grows with the range; huge warps fall back to the
-    gather path). ``row_range`` / ``col_range`` restrict the sweep to an
-    output rectangle — per-zone bounds for the zoned banded remaps (radial
-    warps concentrate |dy| at the top/bottom rows and |dx| at the left/right
-    columns).
+    gather path).
     """
     (fy_lo, fy_hi), (fx_lo, fx_hi) = _floor_disp_minmax(
-        coeffs,
-        width,
-        height,
-        cam_center_norm,
-        scale,
-        (0, height) if row_range is None else row_range,
-        (0, width) if col_range is None else col_range,
+        coeffs, width, height, cam_center_norm, scale
     )
     dyb = (fy_lo - margin, fy_hi + margin)
     dxb = (fx_lo - margin, fx_hi + margin)
     if max(dyb[1] - dyb[0], dxb[1] - dxb[0]) > 2 * cap:
         return None
     return dyb, dxb
-
-
-def warp_sep_pos_error(
-    coeffs_list,
-    width: int,
-    height: int,
-    cam_center_norm: Tuple[float, float],
-    scale: float,
-    dx_bounds,
-    reach: int,
-    row_range: Optional[Tuple[int, int]] = None,
-    col_range: Optional[Tuple[int, int]] = None,
-) -> float:
-    """Position-error bound (px) of the SEPARABLE two-pass remap for this warp.
-
-    The ``*_sep`` banded-remap kinds read the vertical phase at the tap column
-    instead of the output column (ops/pallas_kernels._remap_kernel), so the
-    vertical sample position is off by at most
-    ``max |d map_y / dx| * (max horizontal tap distance)``. Both factors are
-    host-computable: the Lipschitz constant from finite differences of the f64
-    map on the bounds grid, the tap distance from the dx bounds + kernel reach.
-    Callers enable the sep kinds only when this is below the accuracy budget
-    (cv2's own fixed-point resampler quantizes positions to 1/32 px, so a
-    bound under that is strictly better than reference behavior).
-
-    ``row_range`` restricts the sweep to output rows [r0, r1): radial warps
-    have |d map_y/dx| ~ |y - cy|, so central zones bound far tighter than the
-    whole frame — per-zone kinds for remap_bounded_pallas_zoned.
-    """
-    import numpy as np
-
-    cx, cy, m = _geometry(width, height, cam_center_norm)
-    r0, r1 = (0, height) if row_range is None else row_range
-    c0, c1 = (0, width) if col_range is None else col_range
-    xs = np.unique(np.r_[np.arange(c0, c1, max(1, (c1 - c0) // 256)), c1 - 1])
-    ys = np.unique(np.r_[np.arange(r0, r1, max(1, (r1 - r0) // 256)), r1 - 1])
-    sy, sx = np.meshgrid(ys.astype(np.float64), xs.astype(np.float64), indexing="ij")
-    lx = 0.0
-    for coeffs in coeffs_list:
-        k = np.asarray(coeffs, np.float64)
-        dx = (sx - cx) / m
-        dy = (sy - cy) / m
-        r2 = dx * dx + dy * dy
-        # ANALYTIC d(out_y)/d(sx) of the rectilinear polynomial (replaces the
-        # round-3 finite differences + 1.25 peak-underestimate fudge):
-        # out_y = sy + scale*(yp - sy), yp = cy + m*(f*dy + dyt), and with
-        # d/d(sx) = (1/m) d/d(dx):
-        #   d(f*dy)/d(dx) = dy * (2 k1 + 4 k2 r^2 + 6 k3 r^4) * dx
-        #   d(dyt)/d(dx)  = 2 kt1 dy + 2 kt0 dx
-        fprime = (2 * k[1] + 4 * k[2] * r2 + 6 * k[3] * r2 * r2) * dx
-        deriv = scale * (dy * fprime + 2 * k[5] * dy + 2 * k[4] * dx)
-        lx = max(lx, float(np.abs(deriv).max()))
-    tap_dist = max(abs(int(dx_bounds[0])), abs(int(dx_bounds[1]))) + reach
-    return 1.05 * lx * tap_dist  # 1.05: mesh-sampling margin on a smooth field
-
-
-# (n_rows, n_cols) for the grid-zoned warp remap — engaged for BILINEAR only.
-# benchmarks/warp_zone_probe.py (real chip, 1000x1504 x3ch, 2026-08-20):
-# bilinear rides the grid (1.5% warp: rows 1.54 -> grid4x4+sep 1.19 ms;
-# config-5: 0.44 vs 0.46 tie), but lanczos4 LOSES on it at both magnitudes
-# (config-5: rows+sep 1.23 vs grid4x4+sep 1.81; 1.5%: rows 2.15 vs grid4x4
-# 2.48) — 16 launches of overhead plus the halved sep budget (strip-halo
-# phase approximation) disengage sep in exactly the rectangles that needed
-# it. None disables (row zones only).
-_GRID_ZONES: Optional[Tuple[int, int]] = (4, 4)
-
-
-def warp_image_rectilinear(
-    image: Array,
-    coefficients,
-    cam_center_norm: Tuple[float, float],
-    scale: float = 1.0,
-    interpolation: str = "lanczos4",
-) -> Optional[Array]:
-    """All channels of an (H, W, C) image in ONE banded remap launch.
-
-    DNG warps usually carry identical per-plane coefficients, so the
-    coordinate table is computed and DMA'd once and the three per-channel
-    kernel launches collapse into a single (C, bands) grid (the warp step of
-    BASELINE config 5). Returns None off-TPU / when bounds are unavailable —
-    callers fall back to the per-channel path.
-    """
-    import jax
-
-    if jax.default_backend() != "tpu" or image.ndim != 3:
-        return None
-    h, w, c = image.shape
-    coeffs = [tuple(float(v) for v in co) for co in coefficients]
-    if len(coeffs) != c:
-        return None
-    bounds = [
-        displacement_bounds(co, w, h, cam_center_norm, scale)
-        for co in dict.fromkeys(coeffs)
-    ]
-    if any(b is None for b in bounds):
-        return None
-    dyb = (min(b[0][0] for b in bounds), max(b[0][1] for b in bounds))
-    dxb = (min(b[1][0] for b in bounds), max(b[1][1] for b in bounds))
-
-    if len(set(coeffs)) == 1:
-        mx, my = compute_remapping_table(coeffs[0], w, h, cam_center_norm, scale)
-        mx = jnp.clip(mx, 0, w - 1)
-        my = jnp.clip(my, 0, h - 1)
-    else:
-        xs, ys = [], []
-        for co in coeffs:
-            a, b = compute_remapping_table(co, w, h, cam_center_norm, scale)
-            xs.append(jnp.clip(a, 0, w - 1))
-            ys.append(jnp.clip(b, 0, h - 1))
-        mx, my = jnp.stack(xs), jnp.stack(ys)
-
-    from ..ops.pallas_kernels import remap_bounded_pallas, remap_bounded_pallas_zoned
-    from ..ops.resample import SEP_POS_ERR_BUDGET
-
-    # separable two-pass kind when its position-error bound beats cv2's own
-    # 1/32-px fixed-point quantization (see warp_sep_pos_error) — linear
-    # instead of product select cost, and larger spans stay off the gather wall
-    kind = interpolation
-    if interpolation in ("bilinear", "lanczos4"):
-        reach = 4 if interpolation == "lanczos4" else 1
-        err = warp_sep_pos_error(
-            list(dict.fromkeys(coeffs)), w, h, cam_center_norm, scale, dxb, reach
-        )
-        if err <= SEP_POS_ERR_BUDGET:
-            kind = interpolation + "_sep"
-
-    out = None
-    # column x row rectangle zones: every rectangle pays only its LOCAL
-    # displacement spans (round-4 exact bounds). Engaged for bilinear (the
-    # measured 24 MP win — see the _GRID_ZONES note; lanczos4 measured faster
-    # on row zones + sep there) AND for any kind whose full-width banded
-    # launch cannot fit VMEM at the minimum tile — the medium-format case
-    # (100 MP lanczos4 spans (26, 34) measured 349.9M of 128M VMEM as
-    # full-width rows; column rects shrink both the width and the local
-    # spans, BASELINE.md round-5 large-frame ledger).
-    from ..ops.pallas_kernels import remap_fits_full_width
-
-    need_grid = not remap_fits_full_width(kind, w, dyb, dxb)
-    if (
-        _GRID_ZONES is not None
-        and (interpolation == "bilinear" or need_grid)
-        and w >= 512
-        and h >= 64
-    ):
-        # medium-format spans may need finer rects than the measured 4x4
-        # default before the corner rectangles' local (width, span) fit VMEM
-        grid_sizes = [_GRID_ZONES] + ([(8, 8), (12, 12)] if need_grid else [])
-        for n_rows, n_cols in grid_sizes:
-            grid = warp_grid_zones(
-                coeffs, w, h, cam_center_norm, scale,
-                n_rows=n_rows, n_cols=n_cols,
-                interpolation=interpolation,
-            )
-            if grid is None:
-                continue
-            col_zones, _ = grid
-            from ..ops.pallas_kernels import remap_bounded_pallas_grid
-
-            out = remap_bounded_pallas_grid(
-                jnp.moveaxis(image, -1, 0), mx, my, col_zones, interpolation
-            )
-            if out is not None:
-                return jnp.moveaxis(out, 0, -1)
-
-    zones = warp_row_zones(coeffs, w, h, cam_center_norm, scale)
-    if zones is not None:
-        # per-zone kinds: central zones have |d map_y/dx| ~ |y - cy| near zero,
-        # so they ride the cheap separable kind even when the global bound
-        # fails (outer zones stay exact)
-        kinds = None
-        if interpolation in ("bilinear", "lanczos4") and kind == interpolation:
-            reach = 4 if interpolation == "lanczos4" else 1
-            kinds = []
-            for r0, r1, _, z_dxb in zones:
-                z_err = warp_sep_pos_error(
-                    list(dict.fromkeys(coeffs)), w, h, cam_center_norm,
-                    scale, z_dxb, reach, row_range=(r0, r1),
-                )
-                kinds.append(
-                    interpolation + "_sep"
-                    if z_err <= SEP_POS_ERR_BUDGET
-                    else interpolation
-                )
-            if all(k == interpolation for k in kinds):
-                kinds = None
-        out = remap_bounded_pallas_zoned(
-            jnp.moveaxis(image, -1, 0), mx, my, zones, kind, kinds=kinds
-        )
-    if out is None:
-        out = remap_bounded_pallas(
-            jnp.moveaxis(image, -1, 0), mx, my, dyb, dxb, kind
-        )
-    if out is None and kind != interpolation:
-        out = remap_bounded_pallas(
-            jnp.moveaxis(image, -1, 0), mx, my, dyb, dxb, interpolation
-        )
-    if out is None:
-        return None
-    return jnp.moveaxis(out, 0, -1)
-
-
-def warp_row_zones(
-    coeffs_list,
-    width: int,
-    height: int,
-    cam_center_norm: Tuple[float, float],
-    scale: float = 1.0,
-    n_zones: int = 4,
-):
-    """Per-row-zone displacement bounds for the zoned banded remap.
-
-    Radial warps put their largest |dy| at the top/bottom rows; per-zone dy
-    bounds are one-sided and roughly half the global span, nearly halving the
-    kernel's row-select cost. Returns remap_bounded_pallas_zoned's ``zones``
-    (union over the per-channel coefficient sets; identical sets are swept
-    once), or None when any zone's bounds are unavailable."""
-    from ..ops.pallas_kernels import row_zone_edges
-
-    edges = row_zone_edges(height, n_zones)
-    if edges is None:
-        return None
-    unique = list(dict.fromkeys(tuple(tuple(float(v) for v in co)
-                                      for co in coeffs_list)))
-    zones = []
-    for r0, r1 in zip(edges, edges[1:]):
-        bs = [
-            displacement_bounds(
-                co, width, height, cam_center_norm, scale, row_range=(r0, r1)
-            )
-            for co in unique
-        ]
-        if any(b is None for b in bs):
-            return None
-        dyb = (min(b[0][0] for b in bs), max(b[0][1] for b in bs))
-        dxb = (min(b[1][0] for b in bs), max(b[1][1] for b in bs))
-        zones.append((r0, r1, dyb, dxb))
-    return zones
-
-
-def warp_grid_zones(
-    coeffs_list,
-    width: int,
-    height: int,
-    cam_center_norm: Tuple[float, float],
-    scale: float = 1.0,
-    n_rows: int = 4,
-    n_cols: int = 4,
-    interpolation: Optional[str] = None,
-):
-    """Column x row rectangle zones for ``remap_bounded_pallas_grid``.
-
-    Every rectangle gets its own EXACT (+1 px f32 margin) displacement bounds
-    — radial warps put |dy| at the top/bottom rows and |dx| at the left/right
-    columns, so the rectangles' select spans shrink to the local displacement.
-    When ``interpolation`` is given, per-rectangle sep kinds are gated against
-    HALF the usual position-error budget (the strip-halo phase approximation
-    doubles the worst case — see remap_bounded_pallas_grid). Returns
-    (col_zones, any_sep) or None when any rectangle's bounds are unavailable.
-    """
-    from ..ops.pallas_kernels import col_zone_edges, row_zone_edges
-    from ..ops.resample import SEP_POS_ERR_BUDGET
-
-    r_edges = row_zone_edges(height, n_rows)
-    c_edges = col_zone_edges(width, n_cols)
-    if r_edges is None or c_edges is None:
-        return None
-    unique = list(
-        dict.fromkeys(tuple(tuple(float(v) for v in co) for co in coeffs_list))
-    )
-    col_zones = []
-    any_sep = False
-    for c0, c1 in zip(c_edges, c_edges[1:]):
-        zones = []
-        kinds = []
-        for r0, r1 in zip(r_edges, r_edges[1:]):
-            bs = [
-                displacement_bounds(
-                    co, width, height, cam_center_norm, scale,
-                    row_range=(r0, r1), col_range=(c0, c1),
-                )
-                for co in unique
-            ]
-            if any(b is None for b in bs):
-                return None
-            dyb = (min(b[0][0] for b in bs), max(b[0][1] for b in bs))
-            dxb = (min(b[1][0] for b in bs), max(b[1][1] for b in bs))
-            zones.append((r0, r1, dyb, dxb))
-            if interpolation in ("bilinear", "lanczos4"):
-                reach = 4 if interpolation == "lanczos4" else 1
-                err = warp_sep_pos_error(
-                    unique, width, height, cam_center_norm, scale, dxb,
-                    reach, row_range=(r0, r1), col_range=(c0, c1),
-                )
-                if 2.0 * err <= SEP_POS_ERR_BUDGET:
-                    kinds.append(interpolation + "_sep")
-                    any_sep = True
-                else:
-                    kinds.append(interpolation)
-        col_zones.append(
-            (c0, c1, zones, kinds if interpolation else None)
-        )
-    return col_zones, any_sep
 
 
 def warp_channel_rectilinear(
@@ -554,8 +231,7 @@ def warp_channel_rectilinear(
     Coordinates are clipped into the image bounds exactly like the reference's
     np.clip before cv2.remap (:94-97). When the warp's displacement bounds are
     statically known (always, for a bare coefficient warp; via ``bounds`` for
-    prior-composed tables) the gather-free bounded remap runs instead — TPU
-    gathers cost ~10-25 ns/element, ~2000x the arithmetic (BASELINE.md).
+    prior-composed tables) the gather-free bounded remap runs instead.
     """
     h, w = channel.shape[-2], channel.shape[-1]
     if prior is None:

@@ -2,7 +2,7 @@
 
 The reference (bullbin/pySP) cannot run in this environment: its native deps (rawpy,
 exifread, tifftools, colour-science) are absent and its two Cython kernels only build
-with MSVC. Per BASELINE.md, golden outputs therefore come from faithful NumPy
+with MSVC. Golden outputs therefore come from faithful NumPy
 re-implementations of the reference behavior, executed with the same cv2 calls the
 reference makes. These exist ONLY for test parity and CPU baseline timing.
 

@@ -1,7 +1,7 @@
 """Integration tests: one per BASELINE.json benchmark config.
 
 These exercise the exact end-to-end compositions the driver benchmarks, on small
-shapes (the perf numbers come from bench.py on the TPU; these gate correctness).
+shapes (the perf numbers come from bench.py on the GPU; these gate correctness).
 """
 import jax
 import jax.numpy as jnp

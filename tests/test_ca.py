@@ -385,65 +385,9 @@ def test_remove_ca_apply_matches_cv2_transcription():
     assert p > 50, p
 
 
-def test_model_sep_pos_error_zone_and_direction_bounds():
-    """Host-side sep-kind gating (removal._model_sep_pos_error): the global
-    bound for config-5's CA model exceeds the 1/32-px budget, central row
-    zones bound tighter than outer ones, and fine zoning brings the innermost
-    zones under budget (what lets remove_ca ride the separable kind)."""
-    from pysp_tpu.correct.ca.removal import (
-        _model_bound_px,
-        _model_row_zones,
-        _model_sep_pos_error,
-    )
-    from pysp_tpu.ops.resample import SEP_POS_ERR_BUDGET
-
-    model = Poly3CorrectionModel(0.01)
-    both = (model, model)
-    h, w = 1000, 1504
-    bound = _model_bound_px(model, h, w)
-    bb = (-bound, bound)
-
-    glob = _model_sep_pos_error(both, h, w, bb)
-    assert glob is not None and glob > SEP_POS_ERR_BUDGET
-
-    # one-direction restriction can only tighten the union bound
-    for d in ("inv", "fwd"):
-        e = _model_sep_pos_error(both, h, w, bb, direction=d)
-        assert e <= glob * (1 + 1e-9)
-
-    # round 4: the ANALYTIC |d map_y/dx| (replacing finite differences + 1.25
-    # fudge) brings the two CENTRAL zones under budget already at n_zones=4 —
-    # config-5's CA remap rides the separable kind there (BASELINE.md ledger)
-    for n_zones, expect_sep in ((4, True), (16, True)):
-        zones = _model_row_zones(both, h, w, "inv", n_zones=n_zones)
-        assert zones is not None and len(zones) == n_zones
-        errs = [
-            _model_sep_pos_error(
-                both, h, w, zdxb, direction="inv", row_range=(r0, r1)
-            )
-            for r0, r1, _, zdxb in zones
-        ]
-        assert all(e is not None and np.isfinite(e) for e in errs)
-        # |d map_y/dx| ~ |y - cy|: central zones bound tighter than the edges
-        assert max(errs[len(errs) // 2 - 1 : len(errs) // 2 + 1]) < min(
-            errs[0], errs[-1]
-        )
-        if expect_sep:
-            assert min(errs) <= SEP_POS_ERR_BUDGET
-        # outer zones stay exact at this magnitude — the gating is selective,
-        # not a blanket switch
-        if n_zones == 4:
-            assert errs[0] > SEP_POS_ERR_BUDGET and errs[-1] > SEP_POS_ERR_BUDGET
-
-
 def test_remove_ca_batched_frames_matches_per_frame():
-    """remove_ca_from_raw on a batched RawFrame == the per-frame calls.
-
-    Off-TPU the burst path falls back to lax.map of the per-frame program, so
-    this locks the batched entry's plumbing (vmapped resamples, per-frame WB)
-    exactly; the TPU burst kernels are value-checked on-chip by
-    benchmarks/config5_isolate.py's ca_burst case (same 1/32-px budget class).
-    """
+    """remove_ca_from_raw on a batched RawFrame == the per-frame calls: the
+    burst runs the per-frame program under lax.map (per-frame WB included)."""
     import jax
 
     from test_demosaic import make_scene, mosaic_rggb

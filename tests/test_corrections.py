@@ -2,6 +2,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pysp_tpu.core.bayer import bayer_to_planes, planes_to_bayer
 from pysp_tpu.core.frame import RawFrame
@@ -289,7 +290,7 @@ def test_multisect_quantile_matches_order_statistics():
 
 
 def test_compact_mask_indices_matches_nonzero():
-    """The scatter-free compaction (block gather + MXU prefix sum) is
+    """The scatter-free compaction (block gather + matmul prefix sum) is
     bit-identical to jnp.nonzero(size=K) on empty, sparse, dense, overflowing,
     and non-block-aligned masks."""
     from pysp_tpu.correct.bad_pixels import compact_mask_indices
@@ -332,27 +333,55 @@ def test_sparse_inpaint_matches_dense():
     np.testing.assert_array_equal(sparse, dense)
 
 
-def test_heal_pallas_interpret_matches_dense():
-    """The banded Pallas heal (interpret mode) is bit-identical to the dense
-    fill across plane corners, clusters, an unfillable blob, and band seams
-    (tile_h=8 forces many bands)."""
-    from pysp_tpu.correct.bad_pixels import masked_fill_inpaint
-    from pysp_tpu.ops.pallas_kernels import masked_fill_pallas
+def _ref_heal(planes, mask, fill_iterations=4, smooth_iterations=2):
+    """NumPy transcription of the mask-aware heal: normalized 4-neighbour fill,
+    plane-mean seed for unreached sites, harmonic smoothing; replicate border."""
+    planes = planes.astype(np.float32)
 
-    rng = np.random.default_rng(17)
-    h2, w2 = 16, 256
-    chan = jnp.asarray(rng.random((4, h2, w2)).astype(np.float32))
-    mask = np.zeros((4, h2, w2), bool)
-    mask[(rng.random((4, h2, w2)) < 3e-3)] = True
-    mask[0, 0, 0] = mask[1, h2 - 1, w2 - 1] = mask[2, 0, 30] = mask[3, 10, 0] = True
-    mask[0, 5:8, 10:13] = True
-    mask[1, 2:15, 20:33] = True  # too big to fill: seeds from the plane mean
-    mask = jnp.asarray(mask)
+    def nb_sum(a):
+        ap = np.pad(a, ((0, 0), (1, 1), (1, 1)), mode="edge")
+        return ap[:, :-2, 1:-1] + ap[:, 2:, 1:-1] + ap[:, 1:-1, :-2] + ap[:, 1:-1, 2:]
 
-    dense = np.asarray(masked_fill_inpaint(chan, mask))
-    pal = masked_fill_pallas(chan, mask, tile_h=8, interpret=True)
-    assert pal is not None
-    np.testing.assert_array_equal(np.asarray(pal), dense)
+    v = (~mask).astype(np.float32)
+    x = planes * v
+    for _ in range(fill_iterations):
+        xs, vs = nb_sum(x), nb_sum(v)
+        x = np.where(v > 0, x, xs / np.maximum(vs, 1.0))
+        v = np.minimum(v + vs, 1.0)
+    x = np.where(v > 0, x, planes.mean(axis=(1, 2), keepdims=True))
+    for _ in range(smooth_iterations):
+        x = np.where(mask, nb_sum(x) * 0.25, planes)
+    return np.where(mask, x, planes)
+
+
+@pytest.mark.parametrize(
+    "case", ["isolated", "scattered", "over_max_sites", "border_clusters"]
+)
+def test_repair_bad_pixels_matches_reference(case):
+    """repair_bad_pixels (sparse branch below its site bound, dense above)
+    against the NumPy heal, across mask densities and border clusters."""
+    from pysp_tpu.core.bayer import bayer_to_planes, planes_to_bayer
+    from pysp_tpu.correct.bad_pixels import repair_bad_pixels
+
+    rng = np.random.default_rng(23)
+    h, w = 256, 384
+    frame = RawFrame.synthetic(rng.random((h, w)).astype(np.float32))
+    shape = (4, h // 2, w // 2)
+    density = {"isolated": 5e-4, "scattered": 2e-2, "over_max_sites": 0.12,
+               "border_clusters": 0.0}[case]
+    mask = rng.random(shape) < density
+    if case == "border_clusters":
+        mask[0, :3, :3] = True  # corner
+        mask[1, -2:, 40:44] = True  # bottom edge
+        mask[2, 60:63, -3:] = True  # right edge
+        mask[3, 10:25, 0:15] = True  # too big for 4 fill passes
+    n_sites = int(mask.sum())
+    assert (n_sites > 8192) == (case == "over_max_sites")
+
+    got = np.asarray(repair_bad_pixels(frame, jnp.asarray(mask)).bayer)
+    planes = np.asarray(bayer_to_planes(frame.bayer))
+    want = np.asarray(planes_to_bayer(jnp.asarray(_ref_heal(planes, mask))))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 def test_repair_dense_fallback_on_huge_mask():

@@ -1,5 +1,6 @@
 """Filters: Gaussian blur vs reference transcription, unsharp, RL deconvolution."""
 import numpy as np
+import pytest
 
 from pysp_tpu.filters.blur import (
     blur_gaussian,
@@ -100,55 +101,31 @@ def test_rl_variants_shapes_and_finiteness():
 
 
 # ---------------------------------------------------------------------------
-# Banded Pallas RL iteration (ops/pallas_kernels.rl_deconv_pallas, round 5)
+# RL deconvolution vs a NumPy transcription of gauss_rt_deconv.py:29-37
 # ---------------------------------------------------------------------------
-def test_rl_deconv_pallas_matches_xla_loop():
-    """Interpret-mode kernel parity with the XLA RL loop, including the
-    global-border rows/cols (the in-kernel ratio mirror construction)."""
-    import jax
-    import jax.numpy as jnp
+def _ref_rl(image, sigma, iterations):
+    estimate = image.astype(np.float32)
+    for _ in range(iterations):
+        blurred = _ref_blur(estimate, sigma)
+        estimate = estimate * _ref_blur(image / (blurred + 1e-25), sigma)
+    return estimate
 
-    from pysp_tpu.filters.blur import blur_gaussian, get_1d_gaussian_filter
-    from pysp_tpu.ops.pallas_kernels import rl_deconv_pallas
 
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("sigma", [0.8, 1.5, 2.5])
+def test_rl_deconvolution_matches_reference(sigma, ndim):
+    """The fori_loop RL equals the reference's loop on 2D planes and (H, W, C)
+    images, borders included (symmetric padding on every blur)."""
     rng = np.random.default_rng(31)
-    h, w = 48, 160
-    img = jnp.asarray(
-        np.clip(
-            0.4
-            + 0.3 * np.sin(np.arange(w) / 7.0)[None, :]
-            + 0.2 * np.cos(np.arange(h) / 5.0)[:, None]
-            + rng.normal(0, 0.02, (h, w)),
-            0.01,
-            1.0,
-        ),
-        jnp.float32,
+    h, w = 40, 56
+    base = (
+        0.4
+        + 0.3 * np.sin(np.arange(w) / 7.0)[None, :]
+        + 0.2 * np.cos(np.arange(h) / 5.0)[:, None]
     )
-    for sigma, iters in ((2.0, 3), (1.0, 2)):
-        taps = get_1d_gaussian_filter(sigma)
-
-        def body(_, est):
-            blurred = blur_gaussian(est, sigma)
-            return est * blur_gaussian(img / (blurred + 1e-25), sigma)
-
-        want = np.asarray(jax.lax.fori_loop(0, iters, body, img))
-        got = rl_deconv_pallas(img, taps, iters, tile_h=16, interpret=True)
-        assert got is not None
-        np.testing.assert_allclose(np.asarray(got), want, atol=2e-6, rtol=0)
-
-
-def test_rl_deconv_pallas_gates():
-    """Shapes/dtypes the banding can't serve return None (XLA fallback)."""
-    import jax.numpy as jnp
-
-    from pysp_tpu.filters.blur import get_1d_gaussian_filter
-    from pysp_tpu.ops.pallas_kernels import rl_deconv_pallas
-
-    taps = get_1d_gaussian_filter(2.0)
-    assert rl_deconv_pallas(jnp.zeros((8, 8), jnp.float32), taps, 2) is None
-    assert (
-        rl_deconv_pallas(jnp.zeros((48, 64), jnp.bfloat16), taps, 2) is None
-    )
-    assert (
-        rl_deconv_pallas(jnp.zeros((47, 64, 3), jnp.float32), taps, 2) is None
-    )
+    img = base if ndim == 2 else np.stack([base, 0.8 * base, 0.6 * base], -1)
+    img = np.clip(img + rng.normal(0, 0.02, img.shape), 0.01, 1.0).astype(np.float32)
+    got = np.asarray(gaussian_rt_deconvolution(img, sigma, iterations=6))
+    want = _ref_rl(img, sigma, 6)
+    assert got.shape == img.shape
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)

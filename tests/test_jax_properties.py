@@ -63,3 +63,23 @@ def test_burst_matches_single():
         # the lax.map body may compile with slightly different op scheduling than
         # the standalone program; isolated homogeneity-tie pixels can flip (ulp)
         np.testing.assert_allclose(got[i], want, atol=1e-4)
+
+
+@pytest.mark.parametrize("quality", [QualityDemosaic.Draft, QualityDemosaic.Fast,
+                                     QualityDemosaic.Best])
+def test_develop_gradient_matches_finite_difference(quality):
+    """The default config's develop is differentiable as it stands (no kernel
+    without a VJP on any path): d(mean sRGB)/d(exposure gain) from jax.grad
+    agrees with a central finite difference."""
+    bayer = mosaic_rggb(make_scene(32, 48, seed=3)) * 0.6
+    frame = RawFrame.synthetic(bayer, wb_neutral=np.array([0.5, 1.0, 0.7], np.float32))
+    cfg = DevelopConfig(quality=quality)
+
+    def mean_out(log_gain):
+        return jnp.mean(develop(frame.replace(bayer=frame.bayer * jnp.exp(log_gain)), cfg))
+
+    g = float(jax.grad(mean_out)(0.0))
+    eps = 1e-2
+    fd = float((mean_out(eps) - mean_out(-eps)) / (2 * eps))
+    assert np.isfinite(g) and g > 0
+    assert abs(g - fd) <= 0.02 * abs(fd), (g, fd)

@@ -67,86 +67,6 @@ def test_burst_sharded_develop():
 
 
 @requires_multi
-def test_pallas_kernel_inside_shard_map_fast():
-    """Non-slow guard for the Pallas-inside-shard_map invariant (VERDICT r2
-    item 4): a Pallas kernel (interpret mode) launched from INSIDE shard_map
-    must compile and match the monolithic per-item launches bit-exactly.
-    Uses the cheap banded heal kernel so the default suite always exercises
-    the shard_map+Pallas composition (check_vma plumbing, ShapeDtypeStruct
-    outputs); the full megakernel-under-shard_map parity runs in the slow set
-    and on-chip (benchmarks/shard_pallas_check.py)."""
-    from jax.sharding import PartitionSpec as P
-
-    from pysp_tpu.ops.pallas_kernels import masked_fill_pallas
-
-    rng = np.random.default_rng(33)
-    n = 2
-    chan = rng.random((n, 4, 8, 128)).astype(np.float32)
-    mask = rng.random((n, 4, 8, 128)) < 3e-3
-    mask[0, 0, 0, 0] = mask[1, 2, 7, 127] = True
-    mask[0, 1, 5:8, 10:13] = True
-
-    def heal_one(args):
-        c, m = args
-        out = masked_fill_pallas(c, m, tile_h=8, interpret=True)
-        assert out is not None, "Pallas heal fell back inside shard_map"
-        return out
-
-    mesh = make_mesh((n, 1))
-    sharded = jax.jit(
-        jax.shard_map(
-            lambda c, m: jax.lax.map(heal_one, (c, m)),
-            mesh=mesh,
-            in_specs=(P("batch"), P("batch")),
-            out_specs=P("batch"),
-            check_vma=False,  # Pallas outputs carry no vma (see parallel/spatial.py)
-        )
-    )
-    got = np.asarray(sharded(jnp.asarray(chan), jnp.asarray(mask)))
-
-    for i in range(n):
-        want = masked_fill_pallas(
-            jnp.asarray(chan[i]), jnp.asarray(mask[i]), tile_h=8, interpret=True
-        )
-        np.testing.assert_array_equal(got[i], np.asarray(want))
-
-
-@requires_multi
-@pytest.mark.slow
-def test_spatial_sharded_pallas_megakernel_interpret():
-    """The Pallas megakernel runs INSIDE shard_map (interpret mode on the virtual
-    mesh): halos are exchanged before the local develop, so the kernel is purely
-    device-local. Gate: sharded interpret-mega == monolithic interpret-mega on
-    every interior row (identical kernel on identical padded data)."""
-    from pysp_tpu.demosaic.ahd_mega import develop_channels_mega
-
-    def mega_develop(frame, cfg):
-        out = develop_channels_mega(
-            frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode,
-            interpret=True,
-        )
-        assert out is not None, "megakernel fell back (block too small?)"
-        return jnp.stack(out, axis=-1).astype(jnp.float32)
-
-    rgb = make_scene(320, 144, seed=21)
-    frame = RawFrame.synthetic(mosaic_rggb(rgb))
-    cfg = DevelopConfig(quality=QualityDemosaic.Best)
-
-    mesh = make_mesh((1, 2))
-    got = np.asarray(
-        develop_spatial(frame, cfg, mesh, halo=16, _develop_fn=mega_develop)
-    )
-    want = np.asarray(mega_develop(frame, cfg))
-    assert got.shape == want.shape
-    # Band boundaries differ between the 192-row sharded launches and the
-    # 320-row monolithic launch, so homogeneity tie flips are expected
-    # (test_ahd_mega gating); geometry bugs would collapse PSNR entirely.
-    gi, wi = got[16:-16], want[16:-16]
-    assert psnr(gi, wi) > 50
-    assert np.mean(np.abs(gi - wi) > 1e-4) < 0.05
-
-
-@requires_multi
 def test_combined_mesh_axes():
     """2x4 mesh: burst sharded over batch while rows shard spatially."""
     mesh = make_mesh((2, 4))
@@ -158,42 +78,6 @@ def test_combined_mesh_axes():
     got = np.asarray(develop_spatial(frame, cfg, mesh, halo=8))
     want = np.asarray(develop(frame, cfg))
     np.testing.assert_allclose(got[8:-8], want[8:-8], atol=2e-5)
-
-
-@requires_multi
-@pytest.mark.slow
-def test_burst_spatial_pallas_megakernel_interpret():
-    """The production layout (batch x spatial) with the Pallas megakernel as the
-    local develop (interpret mode): every frame matches the monolithic
-    interpret-mega develop to tie-flip noise."""
-    from pysp_tpu.demosaic.ahd_mega import develop_channels_mega
-    from pysp_tpu.parallel.spatial import develop_burst_spatial
-
-    def mega_develop(frame, cfg):
-        out = develop_channels_mega(
-            frame, cfg.postprocess_stages, cfg.clip_highlights, cfg.gamma_encode,
-            interpret=True,
-        )
-        assert out is not None
-        return jnp.stack(out, axis=-1).astype(jnp.float32)
-
-    frames = []
-    for i in range(2):
-        rgb = make_scene(320, 144, seed=30 + i)
-        frames.append(RawFrame.synthetic(mosaic_rggb(rgb)))
-    batch = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *frames)
-
-    cfg = DevelopConfig(quality=QualityDemosaic.Best)
-    mesh = make_mesh((2, 2))
-    got = np.asarray(
-        develop_burst_spatial(batch, cfg, mesh, halo=16, _develop_fn=mega_develop)
-    )
-    assert got.shape == (2, 320, 144, 3)
-    for i in range(2):
-        want = np.asarray(mega_develop(frames[i], cfg))
-        gi, wi = got[i, 16:-16], want[16:-16]
-        assert psnr(gi, wi) > 50
-        assert np.mean(np.abs(gi - wi) > 1e-4) < 0.05
 
 
 # ---------------------------------------------------------------------------

@@ -239,7 +239,7 @@ def test_required_spatial_halo_accounting():
     assert halo > base
     # a CA bound and a warp op both widen it
     with_ca = required_spatial_halo(
-        PipelineConfig(), ((5, "bilinear", "bilinear"), None), [], "bilinear"
+        PipelineConfig(), (5, None), [], "bilinear"
     )
     assert with_ca > base
     with_warp = required_spatial_halo(
@@ -313,40 +313,4 @@ def test_pipeline_spatial_consensus_masks():
     edge = 16
     np.testing.assert_allclose(
         got[:, edge:-edge], want[:, edge:-edge], atol=3e-5
-    )
-
-
-def test_col_rects_for_medium_format_only():
-    """In-shard column rects engage exactly when full-width launches can't
-    fit VMEM (host logic; the rects' dx bounds are column-local)."""
-    from pysp_tpu.parallel.spatial_pipeline import _col_rects_for
-    from pysp_tpu.warp.rectilinear import displacement_bounds
-
-    h, w = 8736, 11648
-    coeffs = WARP_COEFFS
-    dyb, dxb = displacement_bounds(coeffs, w, h, (0.5, 0.5), 1.0)
-
-    def rect_bounds(c0, c1):
-        return displacement_bounds(
-            coeffs, w, h, (0.5, 0.5), 1.0, col_range=(c0, c1)
-        )
-
-    rects = _col_rects_for("lanczos4", w, dyb, dxb, rect_bounds)
-    assert rects is not None and len(rects) >= 4
-    assert rects[0][0] == 0 and rects[-1][1] == w
-    # central rects carry tighter dx spans than the global bounds
-    mid = rects[len(rects) // 2]
-    assert (mid[2][1] - mid[2][0]) < (dxb[1] - dxb[0])
-
-    # a 24 MP-class width fits full-width: no rects
-    h2, w2 = 4000, 6000
-    dyb2, dxb2 = displacement_bounds(coeffs, w2, h2, (0.5, 0.5), 1.0)
-    assert (
-        _col_rects_for(
-            "lanczos4", w2, dyb2, dxb2,
-            lambda c0, c1: displacement_bounds(
-                coeffs, w2, h2, (0.5, 0.5), 1.0, col_range=(c0, c1)
-            ),
-        )
-        is None
     )

@@ -1,154 +1,12 @@
-"""Polyphase stencils: bit-parity with the interleaved full-resolution ops."""
+"""Polyphase plane split/assembly: exact round trip with the mosaic."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pysp_tpu.ops.polyphase import (
-    bayer_to_quad,
-    conv3x3_poly,
-    median5_poly,
-    quad_to_bayer,
-    shift_fullres,
-)
-from pysp_tpu.ops.stencil import (
-    GAUSSIAN3_SIGMA1,
-    box_blur3,
-    filter2d,
-    gaussian_blur3,
-    median5,
-    pad_replicate,
-)
+from pysp_tpu.ops.polyphase import bayer_to_quad, quad_to_bayer
 
 
 @pytest.mark.parametrize("shape", [(16, 20), (30, 42), (8, 8)])
 def test_quad_roundtrip(shape):
     x = jnp.asarray(np.random.default_rng(0).random(shape, np.float32).astype(np.float32))
     np.testing.assert_array_equal(np.asarray(quad_to_bayer(bayer_to_quad(x))), np.asarray(x))
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_conv3x3_poly_matches_filter2d(seed):
-    rng = np.random.default_rng(seed)
-    x = jnp.asarray(rng.random((18, 26)).astype(np.float32))
-    q = bayer_to_quad(x)
-    k = rng.random((3, 3)).astype(np.float32)
-    got = np.asarray(quad_to_bayer(conv3x3_poly(q, k)))
-    want = np.asarray(filter2d(x, k))
-    np.testing.assert_allclose(got, want, atol=1e-6)
-
-
-def test_conv3x3_poly_gaussian_and_box():
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.random((24, 32)).astype(np.float32))
-    q = bayer_to_quad(x)
-    np.testing.assert_allclose(
-        np.asarray(quad_to_bayer(conv3x3_poly(q, GAUSSIAN3_SIGMA1))),
-        np.asarray(gaussian_blur3(x)),
-        atol=1e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(quad_to_bayer(conv3x3_poly(q, np.full((3, 3), 1.0 / 9.0, np.float32)))),
-        np.asarray(box_blur3(x)),
-        atol=1e-6,
-    )
-
-
-def test_median5_poly_exact():
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.random((20, 28)).astype(np.float32))
-    got = np.asarray(quad_to_bayer(median5_poly(bayer_to_quad(x))))
-    np.testing.assert_array_equal(got, np.asarray(median5(x)))
-
-
-@pytest.mark.parametrize("border", ["reflect101", "replicate", "symmetric"])
-def test_shift_fullres_all_offsets(border):
-    """Every (phase, dy, dx) combination vs the padded interleaved reference."""
-    rng = np.random.default_rng(5)
-    x = np.asarray(rng.random((12, 14)).astype(np.float32))
-    q = bayer_to_quad(jnp.asarray(x))
-
-    mode = {"reflect101": "reflect", "replicate": "edge", "symmetric": "symmetric"}[border]
-    xp = np.pad(x, 2, mode=mode)
-
-    for py in (0, 1):
-        for px in (0, 1):
-            for dy in range(-2, 3):
-                for dx in range(-2, 3):
-                    got = np.asarray(shift_fullres(q, py, px, dy, dx, border))
-                    # reference: full-res field at (2i+py+dy, 2j+px+dx)
-                    want = xp[2 + py + dy : 2 + py + dy + 12 : 2,
-                              2 + px + dx : 2 + px + dx + 14 : 2]
-                    np.testing.assert_array_equal(
-                        got, want, err_msg=f"{border} p=({py},{px}) d=({dy},{dx})"
-                    )
-
-
-def _make_frame(h=32, w=40, seed=7, is_hdr=False):
-    from pysp_tpu.core.frame import RawFrame
-
-    rng = np.random.default_rng(seed)
-    bayer = rng.random((h, w)).astype(np.float32)
-    cam_mat = np.array(
-        [[0.9, -0.2, -0.1], [-0.3, 1.1, 0.2], [0.0, -0.4, 1.3]], np.float32
-    )
-    wb = np.array([0.45, 1.0, 0.62], np.float32)
-    return RawFrame.synthetic(bayer, cam_mat=cam_mat, wb_neutral=wb, is_hdr=is_hdr)
-
-
-@pytest.mark.parametrize("is_hdr", [False, True])
-@pytest.mark.parametrize("stages", [0, 2])
-def test_ahd_poly_bit_parity(is_hdr, stages):
-    """demosaic_ahd_quads == demosaic_ahd_channels bit-for-bit (incl. H/V picks)."""
-    from pysp_tpu.core.bayer import bayer_to_rgbg
-    from pysp_tpu.demosaic.ahd import demosaic_ahd_channels
-    from pysp_tpu.demosaic.ahd_poly import demosaic_ahd_quads
-
-    frame = _make_frame(is_hdr=is_hdr)
-    want_r, want_g, want_b = demosaic_ahd_channels(frame, postprocess_stages=stages)
-
-    r0, g1, b0, g2 = bayer_to_rgbg(frame.bayer)
-    q_r, q_g, q_b = demosaic_ahd_quads((r0, g1, g2, b0), frame, postprocess_stages=stages)
-
-    for want, got_q, name in [(want_r, q_r, "r"), (want_g, q_g, "g"), (want_b, q_b, "b")]:
-        np.testing.assert_array_equal(
-            np.asarray(quad_to_bayer(got_q)), np.asarray(want), err_msg=name
-        )
-
-
-@pytest.mark.parametrize("is_hdr", [False, True])
-@pytest.mark.parametrize("stages", [0, 1, 2])
-def test_ahd_band_valid_interior(is_hdr, stages):
-    """Roll-based valid-mode band core == ahd_poly away from the global border."""
-    from pysp_tpu.colorimetry.transforms import cam_to_lin_srgb_matrix
-    from pysp_tpu.core.bayer import bayer_to_rgbg
-    from pysp_tpu.demosaic.ahd_band import ahd_band_quads, margin_for
-    from pysp_tpu.demosaic.ahd_poly import demosaic_ahd_quads
-
-    frame = _make_frame(h=48, w=64, is_hdr=is_hdr)
-    r0, g1, b0, g2 = bayer_to_rgbg(frame.bayer)
-
-    want_r, want_g, want_b = demosaic_ahd_quads(
-        (r0, g1, g2, b0), frame, postprocess_stages=stages
-    )
-
-    P = 8
-    padded = [jnp.pad(p, P, mode="edge") for p in (r0, g1, g2, b0)]
-    mat = cam_to_lin_srgb_matrix(frame.cam_mat, frame.cam_white)
-    got_r, got_g, got_b = ahd_band_quads(
-        padded, mat, frame.wb_reciprocal(), is_hdr, postprocess_stages=stages
-    )
-
-    M = margin_for(stages)
-    assert M <= P
-    h2, w2 = r0.shape
-    for want_q, got_q, name in [(want_r, got_r, "r"), (want_g, got_g, "g"),
-                                (want_b, got_b, "b")]:
-        for py in (0, 1):
-            for px in (0, 1):
-                got = np.asarray(got_q[py][px])[P : P + h2, P : P + w2]
-                want = np.asarray(want_q[py][px])
-                np.testing.assert_array_equal(
-                    got[M : h2 - M, M : w2 - M],
-                    want[M : h2 - M, M : w2 - M],
-                    err_msg=f"{name} phase ({py},{px})",
-                )
